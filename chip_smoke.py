@@ -11,12 +11,24 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    saddle matrices made with numpy from a seed: the lower triangle of the
    packed factor to rtol = atol = 2e-3, the inertia exactly, the f64
    refined solve to |Ax - b|_inf <= 1e-9, NaN for a zero pivot, and the
-   median of CUDA-event times over 10 runs after a warm-up;
+   median of CUDA-event times over 10 runs after a warm-up.  The batched
+   kernel also equals the right-looking kernel on every instance bit for
+   bit, leaves NaN only in the lane of a zero pivot, and is timed beside B
+   sequential calls of the right-looking kernel;
 4. slice: the pendulum swing-up at N = 128 (KKT 644, right-looking kernel)
    and N = 256 (KKT 1284, left-looking kernel) solved by ``Solver`` on the
    card with the mixed-precision LDL^T tier, held against the port's own CPU
    run: status, iteration and accepted-step counts equal, x to 1e-6, and
-   the launch counters showing which kernel served each solve.
+   the launch counters showing which kernel served each solve;
+5. fleet: a pendulum MPC fleet, ``BatchedSolver`` on 128 lanes of
+   ``PendulumControl(N=64)`` (KKT 324, batched kernel) with perturbed start
+   points, its first 8 lanes held against the port's CPU run of those lanes,
+   every lane finite, only the batched kernel launched;
+6. headline: ``BatchedSolver`` on 16384 lanes of Rosenbrock at ``Params()``
+   (the LU tier, compaction on), every lane Optimal, the first 8 lanes held
+   against the CPU run; then, with a harvest every 8 iterations so that the
+   batch shrinks through its tiers, against the run without compaction:
+   equal status and counts, and whether x is bitwise equal.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
@@ -37,10 +49,15 @@ X_TOL = 1e-6
 # (n, m) of each saddle; the first of each kernel has the pendulum's shape
 KERNEL_SIZES = {"rl": [(386, 258), (960, 320)], "ll": [(770, 514), (1536, 512)]}
 MAIN_PATH_SIZE = {"rl": 644, "ll": 1284}  # KKT of the pendulum at N=128 / N=256
+# (B, n, m) of each batched stack; the first is the fleet's (N=64, KKT 324)
+BATCHED_SIZES = [(128, 194, 130), (8, 60, 20)]
 KERNELS = {
     "rl": ("ldlt_factor_rl", "pygradflow_tpu/linalg/pallas_ldlt.py:112"),
     "ll": ("ldlt_factor_ll", "pygradflow_tpu/linalg/pallas_ldlt_hbm.py:162"),
+    "rl_batched": ("ldlt_factor_rl_batched", "pygradflow_tpu/linalg/pallas_ldlt.py:116"),
 }
+FLEET_N, FLEET_B, CPU_LANES = 64, 128, 8
+HEADLINE_B = 16384
 
 
 def fail(msg):
@@ -151,6 +168,69 @@ def kernel_phase(card):
     return records
 
 
+def batched_kernel_phase(card):
+    """The batched kernel against the right-looking kernel on each instance
+    and against its plain version; returns its record at the fleet's shape."""
+    import numpy as np
+    import torch
+
+    from pygradflow_torch.linalg import ldlt_kernels as lk
+    from pygradflow_torch.linalg.ldlt import ldlt_num_neg_eigvals
+    from pygradflow_torch.linalg.two_level_ldlt import guard_factor
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    record = None
+    for batch, n, m in BATCHED_SIZES:
+        a64 = torch.tensor(np.stack([saddle(rng, n, m) for _ in range(batch)]), device=dev)
+        a32 = a64.to(torch.float32).contiguous()
+        packed = lk.ldlt_factor_rl_batched(a32)
+        singles = [lk.ldlt_factor_rl(a32[i]) for i in range(batch)]
+        ref = lk.ldlt_factor_rl_batched_ref(a32)
+        torch.cuda.synchronize()
+        unequal = [i for i in range(batch) if not torch.equal(packed[i], singles[i])]
+        if unequal:
+            fail(f"rl_batched B={batch} n={n + m}: lanes {unequal[:8]} differ from ldlt_factor_rl")
+        lo, lo_ref = torch.tril(packed), torch.tril(ref)
+        err = (lo - lo_ref).abs().max().item()
+        if not torch.allclose(lo, lo_ref, rtol=TOL, atol=TOL):
+            fail(f"rl_batched B={batch} n={n + m}: tril differs from the plain version (max abs {err:.3e})")
+        neg = ldlt_num_neg_eigvals(packed).tolist()
+        if neg != [m] * batch:
+            fail(f"rl_batched B={batch} n={n + m}: inertia {sorted(set(neg))}, expected {m}")
+        b = torch.tensor(rng.standard_normal((batch, n + m)), device=dev)
+        x = lk.refine_solve(guard_factor(packed, a64), a64, b)
+        res = ((a64 @ x[..., None])[..., 0] - b).abs().amax(dim=-1).max().item()
+        if not res <= RES_TOL:
+            fail(f"rl_batched B={batch} n={n + m}: refined residual {res:.3e} > {RES_TOL}")
+        ms = cuda_ms(lambda: lk.ldlt_factor_rl_batched(a32))
+        plain_ms = cuda_ms(lambda: lk.ldlt_factor_rl_batched_ref(a32))
+        loop_ms = cuda_ms(lambda: [lk.ldlt_factor_rl(a32[i]) for i in range(batch)])
+        print(
+            f"kernel ldlt_factor_rl_batched B={batch} n={n + m}: bitwise equal to ldlt_factor_rl "
+            f"on every lane, max_abs_err={err:.3e} inertia={m} refined_res={res:.3e} "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} rl_loop_ms={loop_ms:.4f} [{card}]",
+            flush=True,
+        )
+        if record is None:
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # a zero pivot in one lane poisons that lane only
+    batch, n, m = BATCHED_SIZES[1]
+    a = np.stack([saddle(rng, n, m) for _ in range(batch)])
+    lane, k = 3, 40
+    a[lane, k, :] = 0.0
+    a[lane, :, k] = 0.0
+    a32 = torch.tensor(a, dtype=torch.float32, device=dev)
+    for label, packed in (("kernel", lk.ldlt_factor_rl_batched(a32)), ("plain", lk.ldlt_factor_rl_batched_ref(a32))):
+        guarded = guard_factor(packed, a32)
+        others = [i for i in range(batch) if i != lane]
+        if not torch.isnan(guarded[lane]).all() or not torch.isfinite(torch.tril(guarded[others])).all():
+            fail(f"rl_batched: zero pivot in lane {lane} did not poison that lane alone ({label})")
+    print(f"kernel ldlt_factor_rl_batched: zero pivot in lane {lane} gives NaN in that lane only", flush=True)
+    return record
+
+
 def slice_phase(card):
     """The pendulum at N=128 and N=256 on the card against the port's CPU run;
     returns the launch counts of the main path's run."""
@@ -214,6 +294,118 @@ def slice_phase(card):
     return totals
 
 
+def _check_lanes(label, res, ref, lanes):
+    """Lanes ``lanes`` of a card result against a CPU result."""
+    import numpy as np
+
+    for field in ("status", "iterations", "accepted_steps"):
+        ours, theirs = getattr(res, field)[lanes].tolist(), getattr(ref, field).tolist()
+        if ours != theirs:
+            fail(f"{label}: {field} {ours} on cuda, {theirs} on cpu")
+    dx = np.abs(res.x[lanes].cpu().numpy() - ref.x.numpy()).max()
+    if not dx <= X_TOL:
+        fail(f"{label}: x differs from the cpu run by {dx:.3e}")
+    return dx
+
+
+def fleet_phase(card):
+    """The pendulum MPC fleet through the batched kernel; returns the launch
+    counts of the main path's runs."""
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import LinearSolverType, Params, SolverStatus
+    from pygradflow_torch.linalg import ldlt_kernels as lk
+    from pygradflow_torch.parallel import BatchedSolver
+    from pygradflow_torch.runners.control import PendulumControl
+
+    params = Params(
+        linear_solver_type=LinearSolverType.PallasLDLT,
+        iteration_limit=3000,
+        validate_input=False,
+    )
+    problem = PendulumControl(N=FLEET_N)
+    rng = np.random.default_rng(0)
+    x0 = problem.x0_trajectory()[None, :] + 0.02 * rng.standard_normal((FLEET_B, problem.num_vars))
+    cpu = BatchedSolver(problem, params, device="cpu").solve(x0[:CPU_LANES])
+
+    x0_dev = torch.tensor(x0, device="cuda")
+    for key in lk.LAUNCHES:
+        lk.LAUNCHES[key] = 0
+    for run in ("first", "repeat"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = BatchedSolver(problem, params, device="cuda").solve(x0_dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dx = _check_lanes(f"fleet ({run})", res, cpu, slice(0, CPU_LANES))
+        if not torch.isfinite(res.x).all() or tuple(res.x.shape) != (FLEET_B, problem.num_vars):
+            fail("fleet: solutions not finite or of the wrong shape")
+        optimal = int((res.status == int(SolverStatus.Optimal)).sum())
+        iters = int(res.iterations.max())
+        print(
+            f"fleet N={FLEET_N} B={FLEET_B} ({run}): {optimal}/{FLEET_B} Optimal, lockstep "
+            f"iterations {iters}, lanes 0-{CPU_LANES - 1} {res.iterations[0].item()}/"
+            f"{res.accepted_steps[0].item()} |x-x_cpu|={dx:.3e} wall={wall:.3f} s "
+            f"solves/s={FLEET_B / wall:.1f} ms/iter={1e3 * wall / iters:.2f} [{card}]",
+            flush=True,
+        )
+    used = dict(lk.LAUNCHES)
+    if used["rl_batched"] == 0 or used["rl"] != 0 or used["ll"] != 0:
+        fail(f"fleet: launches {used}, expected only 'rl_batched'")
+    print(f"fleet launches: {used}", flush=True)
+    return used
+
+
+def headline_phase(card):
+    """Batched Rosenbrock at B=16384 through the LU tier."""
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import Params, SolverStatus
+    from pygradflow_torch.parallel import BatchedSolver
+    from tests.torch_parity import Rosenbrock
+
+    params = Params(validate_input=False, jit_chunk=128)
+    x0 = np.random.default_rng(0).uniform(-1.5, 1.5, size=(HEADLINE_B, 2))
+    cpu = BatchedSolver(Rosenbrock(), params, device="cpu").solve(x0[:CPU_LANES])
+    x0_dev = torch.tensor(x0, device="cuda")
+    for run in ("first", "repeat"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = BatchedSolver(Rosenbrock(), params, device="cuda").solve(x0_dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        optimal = int((res.status == int(SolverStatus.Optimal)).sum())
+        if optimal != HEADLINE_B:
+            fail(f"headline: {optimal}/{HEADLINE_B} lanes Optimal")
+        dx = _check_lanes(f"headline ({run})", res, cpu, slice(0, CPU_LANES))
+        print(
+            f"headline Rosenbrock B={HEADLINE_B} ({run}): {optimal}/{HEADLINE_B} Optimal, "
+            f"iterations max {int(res.iterations.max())} median "
+            f"{int(res.iterations.median())}, |x-x_cpu|={dx:.3e} wall={wall:.3f} s "
+            f"solves/s={HEADLINE_B / wall:.1f} [{card}]",
+            flush=True,
+        )
+
+    # compaction only permutes lanes; batched BLAS may pick other algorithms
+    # at other widths, so x is held to X_TOL and its bitwise equality reported
+    plain = BatchedSolver(Rosenbrock(), params, device="cuda", compact=False).solve(x0_dev)
+    shrunk = BatchedSolver(Rosenbrock(), params, device="cuda", compact=True, harvest_chunk=8).solve(x0_dev)
+    for field in ("status", "iterations", "accepted_steps"):
+        if not torch.equal(getattr(plain, field), getattr(shrunk, field)):
+            fail(f"headline: compaction changed {field}")
+    dx = (plain.x - shrunk.x).abs().max().item()
+    if not dx <= X_TOL:
+        fail(f"headline: compaction moved x by {dx:.3e}")
+    print(
+        f"headline compaction (harvest every 8): counts equal, x bitwise equal: "
+        f"{torch.equal(plain.x, shrunk.x) and torch.equal(plain.y, shrunk.y)}, "
+        f"max |dx| {dx:.3e}",
+        flush=True,
+    )
+
+
 def main():
     try:
         import torch
@@ -233,7 +425,10 @@ def main():
     card = device_phase()
     build_phase()
     records = kernel_phase(card)
+    records["rl_batched"] = batched_kernel_phase(card)
     launches = slice_phase(card)
+    launches["rl_batched"] = fleet_phase(card)["rl_batched"]
+    headline_phase(card)
 
     summary = []
     for key, (name, replaces) in KERNELS.items():

@@ -84,6 +84,11 @@ def load_library() -> ctypes.CDLL:
                 ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
+        lib.pgf_ldlt_factor_rl_batched.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.pgf_ldlt_factor_rl_batched.restype = ctypes.c_int
         lib.pgf_ldlt_panel_widths.argtypes = [
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)
         ]

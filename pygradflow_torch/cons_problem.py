@@ -45,45 +45,45 @@ class ConstrainedProblem(Problem):
         super().__init__(var_lb, var_ub, num_cons=num_cons)
 
     def orig_vals(self, x):
-        return x[: self.problem.num_vars]
+        return x[..., : self.problem.num_vars]
 
     def slack_vals(self, x):
-        return x[self.problem.num_vars :]
+        return x[..., self.problem.num_vars :]
 
     def _positions(self, x):
         return torch.as_tensor(self.slack_positions, device=x.device)
 
-    def obj(self, x):
-        return self.problem.obj(self.orig_vals(x))
+    def obj(self, x, *args):
+        return self.problem.obj(self.orig_vals(x), *args)
 
-    def obj_grad(self, x):
-        grad = self.problem.obj_grad(self.orig_vals(x))
+    def obj_grad(self, x, *args):
+        grad = self.problem.obj_grad(self.orig_vals(x), *args)
         if self.num_slacks == 0:
             return grad
         return torch.cat([grad, grad.new_zeros(self.num_slacks)])
 
-    def cons(self, x):
-        c = self.problem.cons(self.orig_vals(x))
+    def cons(self, x, *args):
+        c = self.problem.cons(self.orig_vals(x), *args)
         if self.cons_offsets is not None:
             c = c + torch.as_tensor(self.cons_offsets, dtype=c.dtype, device=c.device)
         if self.num_slacks == 0:
             return c
         return c.index_add(0, self._positions(x), -self.slack_vals(x))
 
-    def cons_jac(self, x):
-        jac = self.problem.cons_jac(self.orig_vals(x))
+    def cons_jac(self, x, *args):
+        jac = self.problem.cons_jac(self.orig_vals(x), *args)
         if self.num_slacks == 0:
             return jac
         slack = torch.as_tensor(self._slack_jac, dtype=jac.dtype, device=jac.device)
         return torch.cat([jac, slack], dim=1)
 
-    def lag_hess(self, x, y):
-        hess = self.problem.lag_hess(self.orig_vals(x), y)
+    def lag_hess(self, x, y, *args):
+        hess = self.problem.lag_hess(self.orig_vals(x), y, *args)
         if self.num_slacks == 0:
             return hess
         return torch.nn.functional.pad(hess, (0, self.num_slacks, 0, self.num_slacks))
 
-    def transform_sol(self, orig_x, orig_y):
+    def transform_sol(self, orig_x, orig_y, *args):
         """Append the initial slack values: the constraint values clipped
         into their bounds."""
         if self.num_slacks == 0:
@@ -91,7 +91,7 @@ class ConstrainedProblem(Problem):
         pos = self._positions(orig_x)
         lb = torch.as_tensor(self.problem.cons_lb, dtype=orig_x.dtype, device=orig_x.device)
         ub = torch.as_tensor(self.problem.cons_ub, dtype=orig_x.dtype, device=orig_x.device)
-        slack_vals = torch.clamp(self.problem.cons(orig_x)[pos], lb[pos], ub[pos])
+        slack_vals = torch.clamp(self.problem.cons(orig_x, *args)[pos], lb[pos], ub[pos])
         return (torch.cat([orig_x, slack_vals]), orig_y)
 
     def restore_sol(self, x, y, d):

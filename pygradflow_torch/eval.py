@@ -1,16 +1,21 @@
 """Evaluation layer: dtype casting, counters, validation (counterpart of
 ``pygradflow_tpu/eval.py``).
 
-Counters are plain ints carried in an immutable ``Counters`` tuple.  A
-non-finite evaluation inside the loop does not raise: it surfaces as a
-non-finite candidate, which the step controller rejects with doubled
-lambda.  Shapes and finiteness at the initial point are checked eagerly.
+Counters are carried in an immutable ``Counters`` tuple: Python ints for
+one instance, (B,) integer tensors for a lane stack.  A non-finite
+evaluation inside the loop does not raise: it surfaces as a non-finite
+candidate, which the step controller rejects with doubled lambda.  Shapes
+and finiteness at the initial point are checked eagerly.
+
+:func:`lane_fns` turns the per-instance closures into closures over a lane
+stack with ``torch.func.vmap``.
 """
 
 from enum import Enum, auto
 from typing import Callable, NamedTuple
 
 import torch
+from torch.func import vmap
 
 from .params import Params
 from .problem import Problem
@@ -52,6 +57,10 @@ class Counters(NamedTuple):
     def zero():
         return Counters()
 
+    @staticmethod
+    def zero_lanes(batch: int, device):
+        return Counters(*(torch.zeros(batch, dtype=torch.int64, device=device) for _ in range(5)))
+
     def add(self, *, obj=0, obj_grad=0, cons=0, cons_jac=0, lag_hess=0):
         return Counters(
             self.obj + obj,
@@ -84,39 +93,64 @@ class Fns(NamedTuple):
 
 
 def make_fns(problem: Problem, params: Params) -> Fns:
-    """Evaluation closures casting every result to ``params.dtype``."""
+    """Evaluation closures casting every result to ``params.dtype``; any
+    trailing arguments (a parametric problem's data) pass through."""
     if params.matrix_free:
         raise NotImplementedError("matrix_free is not yet ported (ROADMAP A9)")
     dtype = params.dtype
     n = problem.num_vars
     m = problem.num_cons
 
-    def obj(x):
-        return problem.obj(x).to(dtype)
+    def obj(x, *args):
+        return problem.obj(x, *args).to(dtype)
 
-    def obj_grad(x):
-        return problem.obj_grad(x).to(dtype)
+    def obj_grad(x, *args):
+        return problem.obj_grad(x, *args).to(dtype)
 
-    def lag_hess(x, y):
-        return problem.lag_hess(x, y).to(dtype)
+    def lag_hess(x, y, *args):
+        return problem.lag_hess(x, y, *args).to(dtype)
 
     if m > 0:
 
-        def cons(x):
-            return problem.cons(x).to(dtype)
+        def cons(x, *args):
+            return problem.cons(x, *args).to(dtype)
 
-        def cons_jac(x):
-            return problem.cons_jac(x).to(dtype)
+        def cons_jac(x, *args):
+            return problem.cons_jac(x, *args).to(dtype)
 
     else:
 
-        def cons(x):
-            return x.new_zeros((0,), dtype=dtype)
+        def cons(x, *args):
+            return x.new_zeros(x.shape[:-1] + (0,), dtype=dtype)
 
-        def cons_jac(x):
-            return x.new_zeros((0, n), dtype=dtype)
+        def cons_jac(x, *args):
+            return x.new_zeros(x.shape[:-1] + (0, n), dtype=dtype)
 
     return Fns(obj, obj_grad, cons, cons_jac, lag_hess, n, m)
+
+
+def lane_fns(fns: Fns, data=None) -> Fns:
+    """The closures of ``fns`` over a lane stack: points (B, n) and (B, m)
+    in, values (B, ...) out, each lane evaluated on its own by
+    ``torch.func.vmap``.  ``data``, a tuple of tensors with a leading lane
+    dimension, goes through vmap as an argument of a parametric problem."""
+    args = () if data is None else (data,)
+
+    def lanes(f):
+        batched = vmap(f)
+        return lambda *xs: batched(*xs, *args)
+
+    if fns.num_cons > 0:
+        cons, cons_jac = lanes(fns.cons), lanes(fns.cons_jac)
+    else:  # no constraints: nothing to evaluate per lane
+        cons, cons_jac = fns.cons, fns.cons_jac
+    return fns._replace(
+        obj=lanes(fns.obj),
+        obj_grad=lanes(fns.obj_grad),
+        cons=cons,
+        cons_jac=cons_jac,
+        lag_hess=lanes(fns.lag_hess),
+    )
 
 
 def _finite(t) -> bool:

@@ -6,7 +6,8 @@ For a step origin (x^, y^) and step size dt = 1/lambda the residual is
     F(x, y) = ( x - P_C(x^ - dt grad_x L_rho(x, y)),  y - (y^ + dt c(x)) )
 
 or its variant scaled by lambda.  The active set is a boolean vector and
-the projection clips only the active entries.
+the projection clips only the active entries.  ``lamb`` is a float for
+one instance, or a (B,) tensor for a lane stack whose points are (B, n).
 """
 
 from typing import Any, NamedTuple
@@ -14,16 +15,17 @@ from typing import Any, NamedTuple
 import torch
 
 from .iterate import Iterate, aug_lag_deriv_x
+from .util import dot, lanes
 
 ACTIVE_EPS = 1e-8  # strict box tolerance (reference implicit_func.py:44)
 
 
 class StepFunc(NamedTuple):
-    """Step origin, step size (``lamb`` = 1/dt, a float) and bounds;
-    ``scaled`` selects the lambda-scaled residual."""
+    """Step origin, step size (``lamb`` = 1/dt) and bounds; ``scaled``
+    selects the lambda-scaled residual."""
 
     orig: Iterate
-    lamb: float
+    lamb: Any
     lb: Any
     ub: Any
     scaled: bool
@@ -34,11 +36,11 @@ class StepFunc(NamedTuple):
 
     @property
     def proj_lb(self):
-        return self.lamb * self.lb if self.scaled else self.lb
+        return lanes(self.lamb, 1) * self.lb if self.scaled else self.lb
 
     @property
     def proj_ub(self):
-        return self.lamb * self.ub if self.scaled else self.ub
+        return lanes(self.lamb, 1) * self.ub if self.scaled else self.ub
 
 
 def make_step_func(orig: Iterate, lamb, lb, ub, scaled: bool = True) -> StepFunc:
@@ -60,8 +62,8 @@ def projection_initial(func: StepFunc, it: Iterate, rho):
     (``ActiveSetType.Standard``: no tau)."""
     d = aug_lag_deriv_x(it, rho)
     if func.scaled:
-        return func.lamb * func.orig.x - d
-    return func.orig.x - func.dt * d
+        return lanes(func.lamb, 1) * func.orig.x - d
+    return func.orig.x - lanes(func.dt, 1) * d
 
 
 def compute_active_set(func: StepFunc, it: Iterate, rho):
@@ -76,15 +78,15 @@ def value_at(func: StepFunc, it: Iterate, rho, active_set=None):
     proj = project_box(func, p, active_set)
 
     if func.scaled:
-        lamb = func.lamb
+        lamb = lanes(func.lamb, 1)
         rx = lamb * it.x - proj
         ry = -(lamb * it.y - (lamb * func.orig.y + it.cons))
     else:
         rx = it.x - proj
-        ry = it.y - (func.orig.y + func.dt * it.cons)
+        ry = it.y - (func.orig.y + lanes(func.dt, 1) * it.cons)
     return rx, ry
 
 
 def value_norm(func: StepFunc, it: Iterate, rho, active_set=None):
     rx, ry = value_at(func, it, rho, active_set)
-    return torch.sqrt(torch.dot(rx, rx) + torch.dot(ry, ry))
+    return torch.sqrt(dot(rx, rx) + dot(ry, ry))

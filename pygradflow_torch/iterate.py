@@ -2,6 +2,10 @@
 augmented-Lagrangian calculus and KKT residuals on it (counterpart of
 ``pygradflow_tpu/iterate.py``).  The Hessian is not stored: the step
 solvers evaluate it when they factor.
+
+Every function serves one instance and a lane stack alike: an iterate's
+fields then carry a leading lane axis, a penalty ``rho`` is a (B,) tensor,
+and each residual is one value per lane.
 """
 
 from typing import Any, NamedTuple
@@ -9,7 +13,7 @@ from typing import Any, NamedTuple
 import torch
 
 from .eval import Fns
-from .util import inf_norm
+from .util import dot, inf_norm, lanes, matvec
 
 
 class Iterate(NamedTuple):
@@ -45,11 +49,11 @@ def iterate_eval_counts(m: int) -> dict:
 
 
 def aug_lag_violation(it: Iterate, rho):
-    return rho / 2.0 * torch.dot(it.cons, it.cons)
+    return rho / 2.0 * dot(it.cons, it.cons)
 
 
 def aug_lag_dual(it: Iterate):
-    return torch.dot(it.cons, it.y)
+    return dot(it.cons, it.y)
 
 
 def aug_lag(it: Iterate, rho):
@@ -57,20 +61,20 @@ def aug_lag(it: Iterate, rho):
 
 
 def _jac_t(it: Iterate, w):
-    return it.cons_jac.T @ w
+    return matvec(it.cons_jac.mT, w)
 
 
 def aug_lag_deriv_x(it: Iterate, rho):
-    return it.obj_grad + _jac_t(it, rho * it.cons + it.y)
+    return it.obj_grad + _jac_t(it, lanes(rho, 1) * it.cons + it.y)
 
 
 def aug_lag_deriv_xx(fns: Fns, it: Iterate, rho):
     """``H(x, y + rho c) + rho J^T J``; with ``rho == 0.0`` (a Python float)
     the ``J^T J`` term is dropped, as the scaled step solvers need."""
-    hess = fns.lag_hess(it.x, it.y + rho * it.cons)
     if isinstance(rho, float) and rho == 0.0:
-        return hess
-    return hess + rho * (it.cons_jac.T @ it.cons_jac)
+        return fns.lag_hess(it.x, it.y + rho * it.cons)
+    hess = fns.lag_hess(it.x, it.y + lanes(rho, 1) * it.cons)
+    return hess + lanes(rho, 2) * (it.cons_jac.mT @ it.cons_jac)
 
 
 class ActiveSet(NamedTuple):

@@ -5,11 +5,16 @@ Every backend has the same interface: factor, (transpose-)solve and the
 inertia query.  A failed factorization does not raise: it leaves NaN in the
 factor, and the step layer turns the non-finite step into a rejected one.
 
-This port serves ``LinearSolverType.PallasLDLT`` only.  The enum keeps its
-name so that configurations carry over; on this port it is the
-hand-written-kernel mixed-precision tier: a packed f32 LDL^T from the CUDA
-kernels of ``csrc/ldlt.cu`` (their plain PyTorch versions for CPU tensors),
-checked by a residual probe, then f64 iterative refinement.
+This port serves two tiers, each for one matrix (n, n) or a lane stack
+(B, n, n):
+
+- ``LinearSolverType.LU``, the default: partial-pivot LU in plain torch
+  (``plu.py``), as the JAX package computes it outside any kernel.
+- ``LinearSolverType.PallasLDLT``.  The enum keeps its name so that
+  configurations carry over; on this port it is the hand-written-kernel
+  mixed-precision tier: a packed f32 LDL^T from the CUDA kernels of
+  ``csrc/ldlt.cu`` (their plain PyTorch versions for CPU tensors), checked
+  by a residual probe, then f64 iterative refinement.
 """
 
 from typing import Any, Callable, NamedTuple, Optional
@@ -38,34 +43,65 @@ class LinearSolver(NamedTuple):
 # Mosaic limits; re-deriving them for the H100 is later work (ROADMAP A8).
 PALLAS_MAX_N = 1280
 PALLAS_HBM_MAX_N = 2048
+PANEL_BATCH_MIN_N = 512
+"""Padded size from which a stack takes the panel-batched factor instead of
+the batched kernel (``pallas_ldlt.py:34``)."""
 
 
-def factor_route(n: int) -> str:
-    """Kernel that factors an (n, n) KKT matrix: "rl" (right-looking) up to
-    PALLAS_MAX_N, "ll" (left-looking) up to PALLAS_HBM_MAX_N."""
-    if n <= PALLAS_MAX_N:
-        return "rl"
-    if n <= PALLAS_HBM_MAX_N:
-        return "ll"
-    raise NotImplementedError(
-        f"KKT size {n} > {PALLAS_HBM_MAX_N} needs the two-level LDL^T "
-        "factorization, not yet ported (ROADMAP A8)"
-    )
+def factor_route(n: int, batched: bool = False) -> str:
+    """How an (n, n) KKT matrix, or a stack of them, is factored.
+
+    One matrix: "rl" (right-looking kernel) up to PALLAS_MAX_N, "ll"
+    (left-looking kernel) up to PALLAS_HBM_MAX_N.  A stack, as the JAX
+    package's vmap rules route it: padded to 128 up to PALLAS_MAX_N, then
+    "rl_batched" (batched kernel) below PANEL_BATCH_MIN_N and "panels"
+    (``ldlt_factor_batched_panels``) from there; padded to 256 and "panels"
+    up to PALLAS_HBM_MAX_N."""
+    from .ldlt_kernels import RL_BLOCK, _padded_size
+
+    if n > PALLAS_HBM_MAX_N:
+        raise NotImplementedError(
+            f"KKT size {n} > {PALLAS_HBM_MAX_N} needs the two-level LDL^T "
+            "factorization, not yet ported (ROADMAP A8)"
+        )
+    if not batched:
+        return "rl" if n <= PALLAS_MAX_N else "ll"
+    if n <= PALLAS_MAX_N and _padded_size(n, RL_BLOCK) < PANEL_BATCH_MIN_N:
+        return "rl_batched"
+    return "panels"
 
 
 def _pallas_ldlt() -> LinearSolver:
     from .ldlt import ldlt_num_neg_eigvals
-    from .ldlt_kernels import ldlt_factor_ll, ldlt_factor_rl, refine_solve
-    from .two_level_ldlt import guard_factor
+    from .ldlt_kernels import (
+        RL_BLOCK,
+        ldlt_factor_ll,
+        ldlt_factor_rl,
+        ldlt_factor_rl_batched,
+        pad_identity,
+        refine_solve,
+    )
+    from .two_level_ldlt import guard_factor, ldlt_factor_batched_panels
 
-    kernels = {"rl": ldlt_factor_rl, "ll": ldlt_factor_ll}
+    def panels(mat):
+        n = mat.shape[-1]
+        # the reference pads with identity before it routes: to 128 (the
+        # VMEM kernel's panel) up to PALLAS_MAX_N, to 256 (the HBM kernel's)
+        # above
+        block = RL_BLOCK if n <= PALLAS_MAX_N else 2 * RL_BLOCK
+        return ldlt_factor_batched_panels(pad_identity(mat, block))[..., :n, :n]
+
+    kernels = {
+        "rl": ldlt_factor_rl,
+        "ll": ldlt_factor_ll,
+        "rl_batched": ldlt_factor_rl_batched,
+        "panels": panels,
+    }
 
     def factor(mat):
-        if mat.ndim != 2:
-            raise NotImplementedError(
-                "batched factorizations (kernel B2) are not yet ported (ROADMAP A7)"
-            )
-        kernel = kernels[factor_route(mat.shape[-1])]
+        if mat.ndim not in (2, 3):
+            raise ValueError(f"expected a matrix or a stack, got {tuple(mat.shape)}")
+        kernel = kernels[factor_route(mat.shape[-1], batched=mat.ndim == 3)]
         packed = kernel(mat.to(torch.float32).contiguous())
         return (guard_factor(packed, mat), mat)
 
@@ -80,8 +116,13 @@ def _pallas_ldlt() -> LinearSolver:
     return LinearSolver(factor, solve, solve, num_neg, "pallas_ldlt")
 
 
+def _lu() -> LinearSolver:
+    from .plu import plu_factor, plu_solve, plu_solve_trans
+
+    return LinearSolver(plu_factor, plu_solve, plu_solve_trans, None, "lu")
+
+
 _ROADMAP = {
-    LinearSolverType.LU: "A4",
     LinearSolverType.Cholesky: "A4",
     LinearSolverType.LDLT: "A4",
     LinearSolverType.MINRES: "A8",
@@ -91,6 +132,8 @@ _ROADMAP = {
 
 def linear_solver(solver_type: LinearSolverType, symmetric: bool = False) -> LinearSolver:
     """Factory keyed on ``LinearSolverType``."""
+    if solver_type == LinearSolverType.LU:
+        return _lu()
     if solver_type == LinearSolverType.PallasLDLT:
         return _pallas_ldlt()
     if solver_type in _ROADMAP:

@@ -6,6 +6,11 @@ derivatives come from ``torch.func``: ``grad`` for the objective gradient,
 ``jacfwd`` for the dense constraint Jacobian, ``jacfwd`` of the Lagrangian
 gradient for the Hessian, and ``jvp``/``vjp`` for the products.  A
 subclass that defines a derivative method itself overrides the default.
+
+Every evaluation method takes optional trailing arguments, ``*args``, and
+passes them on to ``obj`` and ``cons``: a parametric problem receives its
+per-instance data that way (``parallel/batch.py``), and a plain problem
+receives none.
 """
 
 import abc
@@ -84,26 +89,26 @@ class Problem(abc.ABC):
         """Constraint values ``c(x)``; only required when ``num_cons > 0``."""
         raise NotImplementedError()
 
-    def _lag_grad(self, x, y):
-        g = grad(self.obj)(x)
+    def _lag_grad(self, x, y, *args):
+        g = grad(self.obj)(x, *args)
         if self.num_cons > 0:
-            _, jtv = vjp(self.cons, x)
+            _, jtv = vjp(lambda x_: self.cons(x_, *args), x)
             g = g + jtv(y)[0]
         return g
 
-    def obj_grad(self, x):
+    def obj_grad(self, x, *args):
         """Objective gradient; defaults to ``torch.func.grad(self.obj)``."""
-        return grad(self.obj)(x)
+        return grad(self.obj)(x, *args)
 
-    def cons_jac(self, x):
+    def cons_jac(self, x, *args):
         """Dense constraint Jacobian ``(m, n)``; defaults to
         ``torch.func.jacfwd(self.cons)``."""
-        return jacfwd(self.cons)(x)
+        return jacfwd(self.cons)(x, *args)
 
-    def lag_hess(self, x, y):
+    def lag_hess(self, x, y, *args):
         """Dense Hessian of the Lagrangian ``f(x) + y^T c(x)``: forward mode
         over the reverse-mode Lagrangian gradient."""
-        return jacfwd(lambda x_: self._lag_grad(x_, y))(x)
+        return jacfwd(lambda x_: self._lag_grad(x_, y, *args))(x)
 
     def lag_hvp(self, x, y, v):
         """Hessian-vector product ``H(x, y) @ v`` without the Hessian."""

@@ -1,10 +1,13 @@
 """Step-size control: accept or reject a step and adapt lambda = 1/dt
 (counterpart of ``pygradflow_tpu/step/control.py``).
 
-The DistanceRatio controller (the default) is ported.  Where the JAX
-package computes both branches under ``lax.cond``/``jnp.where`` and masks,
-this eager port branches in Python on the same conditions in the same
-order, which takes the same decisions.
+The DistanceRatio controller (the default) is ported in two forms.  For
+one instance, where the JAX package computes both branches under
+``lax.cond``/``jnp.where`` and masks, this eager port branches in Python on
+the same conditions in the same order, which takes the same decisions.  For
+a lane stack (``*_lanes``) it does what the JAX body does under ``vmap``:
+every lane computes both Newton steps and ``torch.where`` picks each lane's
+branch, so each lane takes the decisions the single-instance form takes.
 
 The PI controller on log(theta) follows the reference LogController
 (``pygradflow/controller.py:29-77``): on acceptance
@@ -20,6 +23,8 @@ doubled lambda.
 
 from typing import Any, NamedTuple
 
+import math
+
 import numpy as np
 import torch
 
@@ -28,6 +33,7 @@ from ..eval import Counters
 from ..iterate import Iterate, evaluate_iterate, iterate_eval_counts
 from ..newton import NewtonCfg, make_newton
 from ..params import ActiveSetType, Params, StepControlType
+from ..util import select
 from .solvers import step_solver_def
 
 
@@ -141,18 +147,83 @@ def _distance_ratio(cfg: ControlCfg):
     return step
 
 
-def make_controller(cfg: ControlCfg):
-    """Factory keyed on StepControlType (reference ``step/step_control.py:123-150``)."""
+def _distance_ratio_lanes(cfg: ControlCfg):
+    """DistanceRatio on a lane stack: ``lamb``, ``rho`` and ``error_sum``
+    are (B,) tensors, ``counters`` holds (B,) tensors."""
+    params = cfg.params
+    log_theta_ref = math.log(params.theta_ref)
+
+    def step(orig: Iterate, lamb, rho, error_sum, counters) -> ControlResult:
+        compute_tau(cfg, orig, lamb, rho)
+        carry, counters = cfg.newton_init(orig, lamb, rho, counters)
+        func = impl.make_step_func(orig, lamb, cfg.lb, cfg.ub, scaled=False)
+
+        step1, carry, counters = cfg.newton_step(carry, orig, counters)
+        mid_it, counters = _evaluate(cfg, step1.xn, step1.yn, counters)
+        conv1 = impl.value_norm(func, mid_it, rho) <= params.newton_tol
+        early = conv1 | (step1.diff == 0.0)
+        lamb_early = torch.where(conv1, torch.clamp(lamb * params.lamb_red, min=params.lamb_min), lamb)
+
+        step2, _, counters2 = cfg.newton_step(carry, mid_it, counters)
+        fin_it, counters2 = _evaluate(cfg, step2.xn, step2.yn, counters2)
+        zero2 = step2.diff == 0.0
+        theta = step2.diff / torch.where(step1.diff == 0.0, 1.0, step1.diff)
+        accepted = theta <= params.theta_max
+        # the PI controller on log(theta): accept, reject, or a zero second
+        # step, accepted at unchanged lambda
+        error = log_theta_ref - torch.log(torch.clamp(theta, min=1e-300))
+        es_acc = error_sum + error
+        lamb_acc = torch.clamp(
+            lamb / torch.exp(params.K_P * error + params.K_I * es_acc), min=params.lamb_min
+        )
+        lamb_full = torch.where(accepted, lamb_acc, lamb * params.lamb_inc)
+        es_full = torch.where(accepted, es_acc, torch.where(error_sum > 0.0, 0.0, error_sum))
+        lamb_full = torch.where(zero2, lamb, lamb_full)
+        es_full = torch.where(zero2, error_sum, es_full)
+
+        return ControlResult(
+            iterate=select(early, mid_it, fin_it),
+            lamb=torch.where(early, lamb_early, lamb_full),
+            accepted=early | accepted | zero2,
+            error_sum=torch.where(early, error_sum, es_full),
+            active_set=step1.active_set,
+            counters=select(early, counters, counters2),
+            rcond=float("nan"),
+            first_point=(mid_it.x, mid_it.y),
+        )
+
+    return step
+
+
+def make_controller(cfg: ControlCfg, lanes: bool = False):
+    """Factory keyed on StepControlType (reference ``step/step_control.py:123-150``);
+    ``lanes`` selects the form for a lane stack."""
     sct = cfg.params.step_control_type
     if sct != StepControlType.DistanceRatio:
         item = "A10" if sct in (StepControlType.BoxReduced, StepControlType.Optimizing) else "A5"
         raise NotImplementedError(f"step control {sct.name} is not yet ported (ROADMAP {item})")
-    return _distance_ratio(cfg)
+    return _distance_ratio_lanes(cfg) if lanes else _distance_ratio(cfg)
 
 
 def _iterate_finite(it: Iterate) -> bool:
     leaves = [it.x, it.y, it.obj, it.obj_grad, it.cons, it.cons_jac]
     return bool(torch.stack([torch.isfinite(leaf).all() for leaf in leaves]).all())
+
+
+def compute_step_lanes(cfg: ControlCfg, controller, orig: Iterate, lamb, rho, error_sum, counters):
+    """:func:`compute_step` on a lane stack: each lane whose candidate or
+    lambda is not finite gets a rejected step with doubled lambda."""
+    res = controller(orig, lamb, rho, error_sum, counters)
+    batch = lamb.shape[0]
+    ok = torch.isfinite(res.lamb)
+    for leaf in res.iterate:
+        ok = ok & torch.isfinite(leaf).reshape(batch, -1).all(dim=-1)
+    return res._replace(
+        iterate=select(ok, res.iterate, orig),
+        lamb=torch.where(ok, res.lamb, 2.0 * lamb),
+        accepted=res.accepted & ok,
+        error_sum=torch.where(ok, res.error_sum, error_sum),
+    )
 
 
 class ComputedStep(NamedTuple):

@@ -6,6 +6,10 @@ fact = 1/(1 + lambda rho)): the system ``[[H + lambda I, J^T], [J,
 -lambda fact I]]`` with the rows *and* columns of active variables replaced
 by identity and the right-hand side condensed to match, which keeps the
 matrix symmetric for LDL^T and its inertia test (m negative eigenvalues).
+
+Assembly and solve serve one instance and a lane stack alike: with a
+(B,) ``lamb`` and ``rho`` the KKT matrices are a (B, n+m, n+m) stack and
+the linear solver factors them together.
 """
 
 from typing import Any, NamedTuple
@@ -16,7 +20,7 @@ from .. import implicit_func as impl
 from ..iterate import Iterate
 from ..linalg import LinearSolver, linear_solver
 from ..params import Params, StepSolverType
-from ..util import norm_mult
+from ..util import lanes, matvec, norm_mult
 
 
 class StepResult(NamedTuple):
@@ -56,7 +60,7 @@ class Factorization(NamedTuple):
     active: Any  # bool (n,)
     hess_shifted: Any  # H + lambda I, for the rhs condensation
     jac: Any
-    inertia_ok: bool  # False forces a NaN step, hence a rejection
+    inertia_ok: Any  # None (not tested) or bool per lane; False forces a NaN step
 
 
 class StepSolverDef(NamedTuple):
@@ -88,29 +92,34 @@ def step_solver_def(params: Params) -> StepSolverDef:
 def _symmetric_def(lin: LinearSolver, inertia_correction: bool) -> StepSolverDef:
     def factor(func: impl.StepFunc, H, J, active, rho):
         lamb = func.lamb
-        n = H.shape[0]
-        m = J.shape[0]
+        n = H.shape[-1]
+        m = J.shape[-2]
         eye_n = torch.eye(n, dtype=H.dtype, device=H.device)
 
-        Hl = H + lamb * eye_n
+        Hl = H + lanes(lamb, 2) * eye_n
         inact = ~active
-        both_inact = inact[:, None] & inact[None, :]
+        both_inact = inact[..., :, None] & inact[..., None, :]
 
-        M11 = torch.where(both_inact, Hl, 0.0) + torch.diag(active.to(H.dtype))
-        M12 = torch.where(inact[:, None], J.T, 0.0)
+        M11 = torch.where(both_inact, Hl, 0.0) + torch.diag_embed(active.to(H.dtype))
+        M12 = torch.where(inact[..., :, None], J.mT, 0.0)
         fact = 1.0 / (1.0 + lamb * rho)
-        M22 = -(lamb * fact) * torch.eye(m, dtype=H.dtype, device=H.device)
+        M22 = -lanes(lamb * fact, 2) * torch.eye(m, dtype=H.dtype, device=H.device)
 
         mat = torch.cat(
-            [torch.cat([M11, M12], dim=1), torch.cat([M12.T, M22], dim=1)], dim=0
+            [torch.cat([M11, M12], dim=-1), torch.cat([M12.mT, M22], dim=-1)], dim=-2
         )
         factored = lin.factor(mat)
 
-        inertia_ok = True
+        inertia_ok = None
         if inertia_correction:
+            if lin.num_neg_eigvals is None:
+                raise ValueError(
+                    "Inertia correction requested but linear solver "
+                    f"'{lin.name}' provides no inertia"
+                )
             # expect exactly m negative eigenvalues
             # (reference symmetric_step_solver.py:146-153)
-            inertia_ok = int(lin.num_neg_eigvals(factored)) == m
+            inertia_ok = lin.num_neg_eigvals(factored) == m
 
         return Factorization(
             fact=factored, active=active, hess_shifted=Hl, jac=J, inertia_ok=inertia_ok
@@ -122,18 +131,18 @@ def _symmetric_def(lin: LinearSolver, inertia_correction: bool) -> StepSolverDef
         pfact = 1.0 / (1.0 + lamb * rho)
 
         rx, ry = impl.value_at(func, it, rho, f.active)
-        n = rx.shape[0]
+        n = rx.shape[-1]
 
-        b0_full = torch.where(f.active, dt * rx, 0.0)
+        b0_full = torch.where(f.active, lanes(dt, 1) * rx, 0.0)
         # condensed rhs (reference symmetric_step_solver.py:79-94)
-        rhs_x = torch.where(f.active, b0_full, rx - f.hess_shifted @ b0_full)
-        rhs_y = pfact * ry - f.jac @ b0_full
-        sol = lin.solve(f.fact, torch.cat([rhs_x, rhs_y]))
+        rhs_x = torch.where(f.active, b0_full, rx - matvec(f.hess_shifted, b0_full))
+        rhs_y = lanes(pfact, 1) * ry - matvec(f.jac, b0_full)
+        sol = lin.solve(f.fact, torch.cat([rhs_x, rhs_y], dim=-1))
 
-        dx = sol[:n]
-        dy = pfact * (sol[n:] - rho * ry)
-        if not f.inertia_ok:
-            dx = torch.full_like(dx, float("nan"))
+        dx = sol[..., :n]
+        dy = lanes(pfact, 1) * (sol[..., n:] - lanes(rho, 1) * ry)
+        if f.inertia_ok is not None:
+            dx = torch.where(lanes(f.inertia_ok, 1), dx, float("nan"))
         return dx, dy
 
     return StepSolverDef(

@@ -1,10 +1,53 @@
-"""Small numeric helpers (counterpart of ``pygradflow_tpu/util.py``)."""
+"""Small numeric helpers (counterpart of ``pygradflow_tpu/util.py``).
+
+Every helper acts on the last axis, so it serves one instance (vectors
+(n,)) and a lane stack (B, n) alike.
+"""
 
 import torch
 
 
+def lanes(s, k: int):
+    """A per-lane scalar ``s`` made to broadcast against ``k`` trailing
+    axes: a (B,) tensor becomes (B, 1, ..., 1); a Python number or a 0-dim
+    tensor stays as it is."""
+    if torch.is_tensor(s) and s.ndim > 0:
+        return s.reshape(s.shape + (1,) * k)
+    return s
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of equally shaped (Named)tuples of tensors."""
+    first = trees[0]
+    if isinstance(first, tuple):
+        vals = [tree_map(fn, *leaves) for leaves in zip(*trees)]
+        return type(first)(*vals) if hasattr(first, "_fields") else tuple(vals)
+    return fn(*trees)
+
+
+def select(mask, a, b):
+    """Per lane: ``a`` where ``mask`` is true, else ``b``, through tuples
+    and NamedTuples of tensors.  A ``torch.where``, never a multiply by the
+    mask, so that NaN or inf in a discarded lane never reaches a kept one."""
+    return tree_map(lambda u, v: torch.where(lanes(mask, u.ndim - mask.ndim), u, v), a, b)
+
+
+def dot(x, y):
+    """Inner product over the last axis."""
+    if x.ndim == 1:
+        return torch.dot(x, y)
+    return torch.linalg.vecdot(x, y)
+
+
+def matvec(a, x):
+    """``a @ x`` for a matrix (..., k, n) and a vector (..., n)."""
+    if x.ndim == 1:
+        return a @ x
+    return (a @ x[..., None])[..., 0]
+
+
 def norm_sq(x):
-    return torch.dot(x, x)
+    return dot(x, x)
 
 
 def norm_mult(*args):
@@ -16,7 +59,7 @@ def norm_mult(*args):
 
 
 def inf_norm(x):
-    """Infinity norm that is 0 for empty vectors."""
-    if x.numel() == 0:
-        return torch.zeros((), dtype=x.dtype, device=x.device)
-    return torch.max(torch.abs(x))
+    """Infinity norm over the last axis that is 0 for empty vectors."""
+    if x.shape[-1] == 0:
+        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    return torch.amax(torch.abs(x), dim=-1)

@@ -42,6 +42,23 @@ def test_kernel_matches_plain(cuda, key, shape):
     assert int(ldlt_num_neg_eigvals(packed)) == m
 
 
+def test_batched_kernel_equals_single_kernel(cuda):
+    """B2' on each instance of a stack equals B1' on it bit for bit, and the
+    plain version within the card's f32 bound."""
+    rng = np.random.default_rng(7)
+    a32 = torch.tensor(
+        np.stack([saddle(rng, 194, 130) for _ in range(5)]), dtype=torch.float32, device=cuda
+    )
+    before = lk.LAUNCHES["rl_batched"]
+    packed = lk.ldlt_factor_rl_batched(a32)
+    assert lk.LAUNCHES["rl_batched"] == before + 1
+    for i in range(a32.shape[0]):
+        assert torch.equal(packed[i], lk.ldlt_factor_rl(a32[i].contiguous()))
+    ref = lk.ldlt_factor_rl_batched_ref(a32)
+    torch.testing.assert_close(torch.tril(packed), torch.tril(ref), rtol=2e-3, atol=2e-3)
+    assert ldlt_num_neg_eigvals(packed).tolist() == [130] * 5
+
+
 def test_pendulum_on_cuda_matches_cpu(cuda):
     params = Params(linear_solver_type=LinearSolverType.PallasLDLT, validate_input=False)
     problem = PendulumControl(N=8)

@@ -1,10 +1,13 @@
 """The port's LDL^T tier against the JAX kernels in interpret mode.
 
-The plain versions of the two CUDA kernels run the same algorithms as the
+The plain versions of the CUDA kernels run the same algorithms as the
 TPU kernels in f32, so the lower triangles of the packed factors agree to
 rtol = atol = 1e-4; the inertia agrees exactly; and the port's f64 refined
 solve reaches |Ax - b|_inf <= 1e-9.  The CUDA kernels themselves are
 tested on a card by ``test_torch_cuda.py``.
+
+Every helper also takes a (B, n, n) stack and acts on each lane alone, as
+its JAX counterpart does under explicit batch dimensions.
 """
 
 import jax.numpy as jnp
@@ -13,9 +16,12 @@ import pytest
 import torch
 
 from pygradflow_tpu.linalg.ldlt import ldlt_factor as jax_ldlt_factor
+from pygradflow_tpu.linalg.ldlt import ldlt_num_neg_eigvals as jax_num_neg
 from pygradflow_tpu.linalg.ldlt import ldlt_solve as jax_ldlt_solve
 from pygradflow_tpu.linalg.pallas_ldlt import pallas_ldlt_factor_f32
 from pygradflow_tpu.linalg.pallas_ldlt_hbm import pallas_ldlt_factor_hbm
+from pygradflow_tpu.linalg.two_level_ldlt import ldlt_factor_batched_panels as jax_batched_panels
+from pygradflow_tpu.linalg.two_level_ldlt import ldlt_factor_residual as jax_residual
 from pygradflow_torch.linalg import (
     PALLAS_HBM_MAX_N,
     PALLAS_MAX_N,
@@ -24,7 +30,11 @@ from pygradflow_torch.linalg import (
 )
 from pygradflow_torch.linalg import ldlt_kernels as lk
 from pygradflow_torch.linalg.ldlt import ldlt_factor, ldlt_num_neg_eigvals, ldlt_solve
-from pygradflow_torch.linalg.two_level_ldlt import guard_factor
+from pygradflow_torch.linalg.two_level_ldlt import (
+    guard_factor,
+    ldlt_factor_batched_panels,
+    ldlt_factor_residual,
+)
 from pygradflow_torch.params import LinearSolverType
 
 from .torch_parity import numpy, saddle, tensor
@@ -149,3 +159,123 @@ def test_linear_solver_tier():
 def test_wrapper_rejects_bad_input(wrapper, mat, error):
     with pytest.raises(error):
         wrapper(mat)
+
+
+@pytest.mark.parametrize(
+    "mat,error",
+    [
+        (torch.zeros((2, 4, 4), dtype=torch.float64), TypeError),
+        (torch.zeros((4, 4), dtype=torch.float32), ValueError),
+        (torch.zeros((2, 4, 5), dtype=torch.float32), ValueError),
+        (torch.zeros((0, 4, 4), dtype=torch.float32), ValueError),
+        (torch.zeros((2, 8, 8), dtype=torch.float32)[:, ::2, ::2], ValueError),
+    ],
+    ids=["float64", "one-matrix", "not-square", "empty", "not-contiguous"],
+)
+def test_batched_wrapper_rejects_bad_input(mat, error):
+    with pytest.raises(error):
+        lk.ldlt_factor_rl_batched(mat)
+
+
+def _stack(shapes, seed=7):
+    """A (B, n+m, n+m) stack of saddles with the same (n, m)."""
+    rng = np.random.default_rng(seed)
+    return np.stack([saddle(rng, n, m) for n, m in shapes])
+
+
+@pytest.mark.parametrize("n,m", [(60, 20), (194, 130)], ids=["80", "324"])
+def test_batched_plain_kernel_matches_jax_batched_kernel(n, m):
+    """B2's plain version against the JAX batched route in interpret mode
+    (``_call_batched``: vmap of B1), and bit for bit against B1's plain
+    version on each instance."""
+    a = _stack([(n, m)] * 3)
+    a32 = tensor(a).to(torch.float32)
+    ours = lk.ldlt_factor_rl_batched(a32)
+    ref = np.asarray(pallas_ldlt_factor_f32(jnp.asarray(a), interpret=True))
+    np.testing.assert_allclose(np.tril(numpy(ours)), np.tril(ref), rtol=F32_TOL, atol=F32_TOL)
+    for i in range(a.shape[0]):
+        assert torch.equal(ours[i], lk.ldlt_factor_rl_ref(a32[i].contiguous()))
+    np.testing.assert_array_equal(numpy(ldlt_num_neg_eigvals(ours)), [m] * 3)
+
+
+def test_batched_panels_match_jax():
+    """The panel-batched route at n_pad = 512 (KKT 400)."""
+    a = _stack([(300, 100)] * 2, seed=5)
+    ours = ldlt_factor_batched_panels(tensor(a))
+    ref = np.asarray(jax_batched_panels(jnp.asarray(a)))
+    np.testing.assert_allclose(np.tril(numpy(ours)), np.tril(ref), rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_array_equal(numpy(ldlt_num_neg_eigvals(ours)), [100, 100])
+
+
+@pytest.mark.parametrize(
+    "n,route",
+    [(80, "rl_batched"), (324, "rl_batched"), (384, "rl_batched"), (385, "panels"),
+     (PALLAS_MAX_N, "panels"), (PALLAS_MAX_N + 4, "panels")],
+)
+def test_batched_factor_route(n, route):
+    assert factor_route(n, batched=True) == route
+
+
+def test_rank1_factor_solve_inertia_on_a_stack_match_jax():
+    """``ldlt_factor``, ``ldlt_solve`` and ``ldlt_num_neg_eigvals`` act per
+    lane of a stack, as the JAX ones do."""
+    rng = np.random.default_rng(13)
+    a = np.stack([saddle(rng, 20, m) for m in (4, 6, 8)][:1] * 3)
+    a[1] = saddle(rng, 20, 4)
+    a[2, 20:, 20:] = np.diag([-0.1, -0.1, 0.5, 0.5])  # two positive pivots among the last four
+    b = rng.standard_normal((3, 24))
+    ours = ldlt_factor(tensor(a))
+    ref = np.asarray(jax_ldlt_factor(jnp.asarray(a)))
+    np.testing.assert_allclose(np.tril(numpy(ours)), np.tril(ref), rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(numpy(ldlt_num_neg_eigvals(ours)), np.asarray(jax_num_neg(jnp.asarray(ref))))
+    x = numpy(ldlt_solve(ours, tensor(b)))
+    np.testing.assert_allclose(x, np.asarray(jax_ldlt_solve(jnp.asarray(ref), jnp.asarray(b))), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(np.einsum("bij,bj->bi", a, x), b, atol=1e-9)
+
+
+def test_guard_poisons_only_the_broken_lane():
+    """A 1e34 entry in one lane of a stack (as in
+    ``test_pallas_ldlt.py::test_factor_guard_poisons_garbage``): the probe
+    reads one residual per lane, at f32 rounding for the sound lanes and
+    past the guard's 1e-2 for the broken one in both packages, and the
+    guard leaves NaN in that lane alone."""
+    a = tensor(_stack([(100, 28)] * 3)).to(torch.float32)
+    packed = ldlt_factor(a)
+    packed[1, 50, 10] = 1e34
+    ours = numpy(ldlt_factor_residual(packed, a))
+    ref = np.asarray(jax_residual(jnp.asarray(numpy(packed)), jnp.asarray(numpy(a))))
+    assert ours.shape == ref.shape == (3,)
+    np.testing.assert_array_equal(ours < 1e-6, [True, False, True])
+    np.testing.assert_array_equal(ref < 1e-6, [True, False, True])
+    assert ours[1] > 1e-2 and ref[1] > 1e-2
+    guarded = guard_factor(packed, a)
+    assert torch.isnan(guarded[1]).all()
+    assert torch.isfinite(torch.tril(guarded[[0, 2]])).all()
+
+
+def test_refine_solve_on_a_stack():
+    rng = np.random.default_rng(17)
+    a = _stack([(50, 14)] * 3, seed=17)
+    b = rng.standard_normal((3, 64))
+    packed = lk.ldlt_factor_rl_batched(tensor(a).to(torch.float32))
+    x = numpy(lk.refine_solve(packed, tensor(a), tensor(b)))
+    assert np.abs(np.einsum("bij,bj->bi", a, x) - b).max() <= RES_TOL
+
+
+def test_linear_solver_tier_on_a_stack():
+    """A zero pivot in one lane of a stack: that lane's factor is NaN after
+    the guard, the others solve to 1e-9 with exact inertia, and CPU tensors
+    launch nothing."""
+    rng = np.random.default_rng(7)
+    a = _stack([(60, 20)] * 3)
+    a[2, 30, :] = 0.0
+    a[2, :, 30] = 0.0
+    b = rng.standard_normal((3, 80))
+    before = dict(lk.LAUNCHES)
+    lin = linear_solver(LinearSolverType.PallasLDLT, symmetric=True)
+    fact = lin.factor(tensor(a))
+    x = numpy(lin.solve(fact, tensor(b)))
+    assert np.abs(np.einsum("bij,bj->bi", a[:2], x[:2]) - b[:2]).max() <= RES_TOL
+    assert np.isnan(x[2]).all()
+    np.testing.assert_array_equal(numpy(lin.num_neg_eigvals(fact))[:2], [20, 20])
+    assert lk.LAUNCHES == before

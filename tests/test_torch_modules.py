@@ -206,7 +206,7 @@ def test_import_leaves_jax_out():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        (dict(), "A4"),  # the default LU tier
+        (dict(linear_solver_type="Cholesky"), "A4"),
         (dict(ANCHOR, scaling_type="GradJac"), "A2"),
         (dict(ANCHOR, newton_type="Full"), "A5"),
         (dict(ANCHOR, step_control_type="Exact"), "A5"),
@@ -314,3 +314,44 @@ def test_diagnose_eval_failure_matches(state):
     j_comp = j_diagnose(jt.fns, x, y)
     t_comp = t_diagnose(tt.fns, tensor(x), tensor(y))
     assert j_comp is not None and t_comp.name() == j_comp.name()
+
+
+@pytest.mark.parametrize(
+    "name,args",
+    [
+        ("Rosenbrock", ()),
+        ("BoundedQuad", ([0.2, 1.5, -0.3],)),
+        ("HS71", ()),
+        ("HS71Constrained", ()),
+        ("Tame", ()),
+        ("TargetProblem", ()),
+        ("LaplacianQP", (9,)),
+        ("ConstrainedRosenbrock", ()),
+    ],
+)
+def test_twin_problems_match_jax(name, args):
+    """Each torch twin of ``tests/problems.py`` against its JAX original at
+    seeded points inside the bounds: bounds, objective, gradient,
+    constraints, Jacobian and Lagrangian Hessian."""
+    import tests.problems as jprob
+
+    from . import torch_parity as tprob
+
+    jp, tp = getattr(jprob, name)(*args), getattr(tprob, name)(*args)
+    np.testing.assert_array_equal(tp.var_lb, jp.var_lb)
+    np.testing.assert_array_equal(tp.var_ub, jp.var_ub)
+    np.testing.assert_array_equal(tp.cons_lb, jp.cons_lb)
+    np.testing.assert_array_equal(tp.cons_ub, jp.cons_ub)
+    rng = np.random.default_rng(23)
+    lo = np.where(np.isfinite(jp.var_lb), jp.var_lb, -2.0)
+    hi = np.where(np.isfinite(jp.var_ub), jp.var_ub, 2.0)
+    for _ in range(3):
+        x = rng.uniform(lo, hi)
+        y = rng.standard_normal(jp.num_cons)
+        jx, tx = jnp.asarray(x), tensor(x)
+        _close(tp.obj(tx), jp.obj(jx))
+        _close(tp.obj_grad(tx), jp.obj_grad(jx))
+        _close(tp.lag_hess(tx, tensor(y)), jp.lag_hess(jx, jnp.asarray(y)))
+        if jp.num_cons > 0:
+            _close(tp.cons(tx), jp.cons(jx))
+            _close(tp.cons_jac(tx), jp.cons_jac(jx))

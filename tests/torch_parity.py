@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from pygradflow_torch import Problem, convert
+from pygradflow_torch.parallel import ParametricProblem
 
 torch.set_num_threads(1)
 
@@ -40,6 +41,122 @@ def tensor(a):
 
 def numpy(t):
     return t.detach().cpu().numpy()
+
+
+class Rosenbrock(Problem):
+    """Torch twin of ``tests/problems.py::Rosenbrock``: unconstrained,
+    optimum (a, a^2)."""
+
+    def __init__(self, a=1.0, b=100.0):
+        self.a = a
+        self.b = b
+        super().__init__(np.array([-np.inf, -np.inf]), np.array([np.inf, np.inf]))
+
+    def obj(self, v):
+        x, y = v[0], v[1]
+        return (self.a - x) ** 2 + self.b * (y - x**2) ** 2
+
+
+class BoundedQuad(Problem):
+    """Torch twin of ``tests/problems.py::BoundedQuad``: ``1/2 ||x - c||^2``
+    over the unit box."""
+
+    def __init__(self, c):
+        self.c = np.asarray(c, dtype=float)
+        n = self.c.shape[0]
+        super().__init__(np.zeros(n), np.ones(n))
+
+    def obj(self, x):
+        return 0.5 * torch.sum((x - torch.as_tensor(self.c, device=x.device)) ** 2)
+
+
+class HS71(Problem):
+    """Torch twin of ``tests/problems.py::HS71``: both nonlinear
+    constraints as equalities through an explicit slack variable."""
+
+    def __init__(self):
+        lb = np.array([1.0, 1.0, 1.0, 1.0, 0.0])
+        ub = np.array([5.0, 5.0, 5.0, 5.0, np.inf])
+        super().__init__(lb, ub, num_cons=2)
+
+    def obj(self, x):
+        xx = x[:-1]
+        return xx[0] * xx[3] * (xx[0] + xx[1] + xx[2]) + xx[2]
+
+    def cons(self, x):
+        xx = x[:-1]
+        s = x[-1]
+        return torch.stack([torch.prod(xx) - s - 25.0, torch.dot(xx, xx) - 40.0])
+
+
+TARGET_X0 = np.array([-1.0, 1.0])
+TARGET_X1 = np.array([1.0, -1.0])
+
+
+class TargetProblem(Problem):
+    """Torch twin of ``tests/problems.py::TargetProblem``: two global optima
+    with indefinite Hessian regions in between."""
+
+    def __init__(self):
+        super().__init__(np.array([-np.inf, -np.inf]), np.array([np.inf, np.inf]))
+
+    def obj(self, x):
+        d0 = x - torch.as_tensor(TARGET_X0, device=x.device)
+        d1 = x - torch.as_tensor(TARGET_X1, device=x.device)
+        return torch.dot(d0, d0) * torch.dot(d1, d1)
+
+
+class LaplacianQP(Problem):
+    """Torch twin of ``tests/problems.py::LaplacianQP``: a box-constrained QP
+    with a 1-D Laplacian Hessian and hand-written derivatives."""
+
+    def __init__(self, n=49):
+        h = 1.0 / (n + 1)
+        main = 2.0 * np.ones(n)
+        off = -1.0 * np.ones(n - 1)
+        self.A = torch.as_tensor((np.diag(main) + np.diag(off, 1) + np.diag(off, -1)) / h**2)
+        t = np.linspace(h, 1.0 - h, n)
+        self.b = torch.as_tensor((np.pi**2) * np.sin(np.pi * t))
+        super().__init__(np.zeros(n), np.full(n, np.inf))
+
+    def obj(self, x):
+        return 0.5 * torch.dot(x, self.A @ x) - torch.dot(self.b, x)
+
+    def obj_grad(self, x):
+        return self.A @ x - self.b
+
+    def lag_hess(self, x, y):
+        return self.A
+
+
+class ConstrainedRosenbrock(Problem):
+    """Torch twin of ``tests/problems.py::ConstrainedRosenbrock``: box and one
+    linear equality cut off the unconstrained optimum."""
+
+    def __init__(self):
+        super().__init__(np.array([-1.5, -0.5]), np.array([0.8, 2.0]), num_cons=1)
+
+    def obj(self, v):
+        return (1.0 - v[0]) ** 2 + 100.0 * (v[1] - v[0] ** 2) ** 2
+
+    def cons(self, v):
+        return (v[0] + v[1] - 1.0)[None]
+
+
+class ParamRosenbrock(ParametricProblem):
+    """Torch twin of ``tests/test_batch.py::ParamRosenbrock``: Rosenbrock with
+    per-instance (a, b)."""
+
+    def __init__(self):
+        super().__init__(
+            np.array([-np.inf, -np.inf]),
+            np.array([np.inf, np.inf]),
+            example_data=(torch.tensor(1.0, dtype=torch.float64), torch.tensor(100.0, dtype=torch.float64)),
+        )
+
+    def p_obj(self, v, data):
+        a, b = data
+        return (a - v[0]) ** 2 + b * (v[1] - v[0] ** 2) ** 2
 
 
 class HS71Constrained(Problem):
