@@ -8,13 +8,19 @@ Phases, one line each (any failed check raises and the exit code is not 0):
 1. device: the card's name and power limit, from nvidia-smi;
 2. build: the hand-written kernels of ``pygradflow_torch/csrc`` with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, on
-   saddle matrices made with numpy from a seed: the lower triangle of the
-   packed factor to rtol = atol = 2e-3, the inertia exactly, the f64
-   refined solve to |Ax - b|_inf <= 1e-9, NaN for a zero pivot, and the
-   median of CUDA-event times over 10 runs after a warm-up.  The batched
-   kernel also equals the right-looking kernel on every instance bit for
-   bit, leaves NaN only in the lane of a zero pivot, and is timed beside B
-   sequential calls of the right-looking kernel;
+   saddle matrices made with numpy from a seed and on the matrices phase 7
+   gives the kernels (built by the port's Schur step at the interleaved
+   pendulum's start point: the dense dual S at N = 256, the BCR root at
+   N = 1024, both diagonal blocks of the two-level factor at N = 1024, the
+   fleet's BCR roots at N = 100): the lower triangle of the packed factor
+   to rtol = atol = 2e-3, the inertia exactly, the f64 refined solve to
+   |Ax - b|_inf <= 1e-9, NaN for a zero pivot, and the median of
+   CUDA-event times over 10 runs after a warm-up.  The two-level factor of
+   that S (2 x 1025) is held the same way against its super-blocks through
+   B1's plain version.  The batched kernel also equals the right-looking
+   kernel on every instance bit for bit, leaves NaN only in the lane of a
+   zero pivot, and is timed beside B sequential calls of the right-looking
+   kernel;
 4. slice: the pendulum swing-up at N = 128 (KKT 644, right-looking kernel)
    and N = 256 (KKT 1284, left-looking kernel) solved by ``Solver`` on the
    card with the mixed-precision LDL^T tier, held against the port's own CPU
@@ -28,7 +34,20 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    (the LU tier, compaction on), every lane Optimal, the first 8 lanes held
    against the CPU run; then, with a harvest every 8 iterations so that the
    batch shrinks through its tiers, against the run without compaction:
-   equal status and counts, and whether x is bitwise equal.
+   equal status and counts, and whether x is bitwise equal;
+7. control: the Schur tiers on ``PendulumControlInterleaved`` (BASELINE
+   config #4), each card run held against the run named beside it (Optimal
+   both, equal iteration and accepted-step counts, x to 1e-6) and its
+   launches checked: (a) the dense dual Schur complement through the
+   mixed-precision tier at N = 256 (514 rows, B1' only) against the CPU
+   run; (b) the matrix-free staged tier (BCR down to a 512-row root, B1'
+   only) at N = 1024 against the card's f64 staged run and the CPU run, and
+   at N = 4096 against the card's f64 run; (c) the dense dual at N = 1024
+   (2050 rows, the two-level factor, 2 x 1025 through B1') against the
+   card's f64 dense Schur run; (d) a ``BatchedSolver`` fleet of 128 lanes at
+   N = 256 (root (128, 512, 512), the panel factor, no kernel) and (e) at
+   N = 100 (root (128, 256, 256), B2' only), first 8 lanes against the CPU
+   run.  The f64 references launch no kernel.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
@@ -108,14 +127,117 @@ def build_phase():
     print(f"build: {build.BUILD_SECONDS:.1f} s ({build.library_path().parent.name})", flush=True)
 
 
-def kernel_phase(card):
-    """Each kernel against its plain version on the card; returns per-kernel
-    records at the main path's sizes."""
+def path_matrices(device):
+    """The f32 matrices that phase 7 gives the kernels, built by the port's
+    own Schur step from ``PendulumControlInterleaved`` at its start point
+    (``lamb_init``, ``rho``, y = 0, no active bound), with a stand-in dual
+    tier that keeps each matrix instead of factoring it.  Every one is
+    negative definite.  Returns ``{"rl": [(label, matrix, negative
+    eigenvalues)], "rl_batched": [...], "two_level": S}``; the two-level
+    diagonal blocks are those of B1's plain version."""
     import numpy as np
+    import torch
+    from torch.func import vmap
+
+    from pygradflow_torch import Params
+    from pygradflow_torch.linalg import LinearSolver
+    from pygradflow_torch.linalg import ldlt_kernels as lk
+    from pygradflow_torch.linalg.two_level_ldlt import _super_block_factor
+    from pygradflow_torch.runners.control import PendulumControlInterleaved
+    from pygradflow_torch.step.schur import schur_def
+
+    params = Params()
+    keep = LinearSolver(lambda mat: mat, None, None, None, "pallas_ldlt")
+
+    class Func:
+        lamb = params.lamb_init
+
+    def dual(N, dual_block=None, batch=None):
+        """The dense dual S, or with ``dual_block`` the root that BCR hands
+        the tier; for ``batch`` lanes from the fleet's start points."""
+        problem = PendulumControlInterleaved(N=N)
+        x0 = problem.x0_trajectory()
+        if batch:
+            rng = np.random.default_rng(0)
+            x0 = x0[None, :] + 0.02 * rng.standard_normal((batch, problem.num_vars))
+        x = torch.tensor(x0, device=device)
+        y = x.new_zeros(x.shape[:-1] + (problem.num_cons,))
+        hess, jac = problem.lag_hess, problem.cons_jac
+        if batch:
+            hess, jac = vmap(hess), vmap(jac)
+        active = torch.zeros(x.shape, dtype=torch.bool, device=device)
+        fact = schur_def(keep, 3, dual_block).factor(Func, hess(x, y), jac(x), active, params.rho).fact
+        if dual_block is None:
+            return fact.s_fact
+        if fact.s_fact.root_kind != "lin":
+            fail(f"N={N}: the BCR root did not go to the PallasLDLT tier")
+        return fact.s_fact.root_fact
+
+    s256, s1024 = dual(256), dual(1024)
+    blocks = []
+
+    def plain_block(block):
+        blocks.append(block.clone())
+        return lk.ldlt_factor_rl_ref(block)
+
+    _super_block_factor(s1024, 1025, plain_block)
+    return {
+        "rl": [
+            ("dense dual S, N=256", s256, 514),
+            ("BCR root, N=1024", dual(1024, 2), 512),
+            ("two-level diagonal block 1, N=1024", blocks[0], 1025),
+            ("two-level diagonal block 2, N=1024", blocks[1], 1025),
+        ],
+        "rl_batched": [("BCR roots of the fleet, N=100", dual(100, 2, FLEET_B), 256)],
+        "two_level": s1024,
+    }
+
+
+def _factor_check(label, kernel, plain, a64, neg_expected, rng, card):
+    """``kernel`` against ``plain`` on the f32 cast of ``a64`` (a matrix or a
+    stack): the lower triangles to TOL, the inertia, the refined residual;
+    prints one line and returns the max abs error, ms and plain ms."""
     import torch
 
     from pygradflow_torch.linalg import ldlt_kernels as lk
     from pygradflow_torch.linalg.ldlt import ldlt_num_neg_eigvals
+    from pygradflow_torch.linalg.two_level_ldlt import guard_factor
+
+    a32 = a64.to(torch.float32).contiguous()
+    packed = kernel(a32)
+    ref = plain(a32)
+    torch.cuda.synchronize()
+    lo, lo_ref = torch.tril(packed), torch.tril(ref)
+    err = (lo - lo_ref).abs().max().item()
+    if not torch.allclose(lo, lo_ref, rtol=TOL, atol=TOL):
+        fail(f"{label}: tril differs from the plain version (max abs {err:.3e})")
+    neg = ldlt_num_neg_eigvals(packed).reshape(-1).tolist()
+    neg_ref = ldlt_num_neg_eigvals(ref).reshape(-1).tolist()
+    if not neg == neg_ref == [neg_expected] * len(neg):
+        fail(f"{label}: inertia {sorted(set(neg))} vs plain {sorted(set(neg_ref))}, expected {neg_expected}")
+    b = torch.tensor(rng.standard_normal(a64.shape[:-1]), device=a64.device)
+    x = lk.refine_solve(guard_factor(packed, a64), a64, b)
+    res = ((a64 @ x[..., None])[..., 0] - b).abs().max().item()
+    if not res <= RES_TOL:
+        fail(f"{label}: refined residual {res:.3e} > {RES_TOL}")
+    ms = cuda_ms(lambda: kernel(a32))
+    plain_ms = cuda_ms(lambda: plain(a32))
+    print(
+        f"{label}: max_abs_err={err:.3e} inertia={neg_expected} refined_res={res:.3e} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} [{card}]",
+        flush=True,
+    )
+    return err, ms, plain_ms
+
+
+def kernel_phase(card, path):
+    """Each kernel against its plain version on the card, on saddle matrices
+    and on the matrices ``path`` of phase 7; returns per-kernel records at
+    the main path's sizes."""
+    import numpy as np
+    import torch
+
+    from pygradflow_torch.linalg import ldlt_kernels as lk
     from pygradflow_torch.linalg.two_level_ldlt import guard_factor
 
     dev = torch.device("cuda")
@@ -125,32 +247,17 @@ def kernel_phase(card):
         name, _ = KERNELS[key]
         kernel = getattr(lk, name)
         plain = getattr(lk, name + "_ref")
-        for n, m in sizes:
-            a64 = torch.tensor(saddle(rng, n, m), device=dev)
-            a32 = a64.to(torch.float32).contiguous()
-            packed = kernel(a32)
-            ref = plain(a32)
-            torch.cuda.synchronize()
-            lo, lo_ref = torch.tril(packed), torch.tril(ref)
-            err = (lo - lo_ref).abs().max().item()
-            if not torch.allclose(lo, lo_ref, rtol=TOL, atol=TOL):
-                fail(f"{name} n={n + m}: tril differs from the plain version (max abs {err:.3e})")
-            neg, neg_ref = int(ldlt_num_neg_eigvals(packed)), int(ldlt_num_neg_eigvals(ref))
-            if not neg == neg_ref == m:
-                fail(f"{name} n={n + m}: inertia {neg} vs plain {neg_ref}, expected {m}")
-            b = torch.tensor(rng.standard_normal(n + m), device=dev)
-            x = lk.refine_solve(guard_factor(packed, a64), a64, b)
-            res = (a64 @ x - b).abs().max().item()
-            if not res <= RES_TOL:
-                fail(f"{name} n={n + m}: refined residual {res:.3e} > {RES_TOL}")
-            ms = cuda_ms(lambda: kernel(a32))
-            plain_ms = cuda_ms(lambda: plain(a32))
-            print(
-                f"kernel {name} n={n + m}: max_abs_err={err:.3e} inertia={neg} "
-                f"refined_res={res:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} [{card}]",
-                flush=True,
-            )
-            if n + m == MAIN_PATH_SIZE[key]:
+
+        def cases():
+            for n, m in sizes:
+                yield "saddle", torch.tensor(saddle(rng, n, m), device=dev), m
+            for label, mat, neg in path.get(key, ()):
+                yield label, mat.to(torch.float64), neg
+
+        for label, a64, neg in cases():
+            n = a64.shape[-1]
+            err, ms, plain_ms = _factor_check(f"kernel {name} n={n} ({label})", kernel, plain, a64, neg, rng, card)
+            if n == MAIN_PATH_SIZE[key] and label == "saddle":
                 records[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
         # a zero pivot inside a later panel poisons the factor with NaN
@@ -168,50 +275,62 @@ def kernel_phase(card):
     return records
 
 
-def batched_kernel_phase(card):
-    """The batched kernel against the right-looking kernel on each instance
-    and against its plain version; returns its record at the fleet's shape."""
+def two_level_phase(card, path):
+    """The two-level factor of the dense dual S at N=1024 (2 x 1025 through
+    B1') against the same super-blocks through B1's plain version."""
     import numpy as np
     import torch
 
     from pygradflow_torch.linalg import ldlt_kernels as lk
-    from pygradflow_torch.linalg.ldlt import ldlt_num_neg_eigvals
+    from pygradflow_torch.linalg.two_level_ldlt import _super_block_factor, ldlt_factor_two_level
+
+    s = path["two_level"]
+    _factor_check(
+        f"two-level factor n={s.shape[-1]} (dense dual S, N=1024)",
+        ldlt_factor_two_level,
+        lambda a: _super_block_factor(a, 1025, lk.ldlt_factor_rl_ref),
+        s.to(torch.float64),
+        s.shape[-1],
+        np.random.default_rng(SEED),
+        card,
+    )
+
+
+def batched_kernel_phase(card, path):
+    """The batched kernel against the right-looking kernel on each instance
+    and against its plain version, on saddle stacks and on the stack
+    ``path`` of phase 7; returns its record at the fleet's shape."""
+    import numpy as np
+    import torch
+
+    from pygradflow_torch.linalg import ldlt_kernels as lk
     from pygradflow_torch.linalg.two_level_ldlt import guard_factor
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     record = None
-    for batch, n, m in BATCHED_SIZES:
-        a64 = torch.tensor(np.stack([saddle(rng, n, m) for _ in range(batch)]), device=dev)
+
+    def cases():
+        for batch, n, m in BATCHED_SIZES:
+            yield "saddle", torch.tensor(np.stack([saddle(rng, n, m) for _ in range(batch)]), device=dev), m
+        for label, mat, neg in path["rl_batched"]:
+            yield label, mat.to(torch.float64), neg
+
+    for label, a64, neg in cases():
+        batch, n = a64.shape[0], a64.shape[-1]
+        tag = f"kernel ldlt_factor_rl_batched B={batch} n={n} ({label})"
         a32 = a64.to(torch.float32).contiguous()
         packed = lk.ldlt_factor_rl_batched(a32)
         singles = [lk.ldlt_factor_rl(a32[i]) for i in range(batch)]
-        ref = lk.ldlt_factor_rl_batched_ref(a32)
         torch.cuda.synchronize()
         unequal = [i for i in range(batch) if not torch.equal(packed[i], singles[i])]
         if unequal:
-            fail(f"rl_batched B={batch} n={n + m}: lanes {unequal[:8]} differ from ldlt_factor_rl")
-        lo, lo_ref = torch.tril(packed), torch.tril(ref)
-        err = (lo - lo_ref).abs().max().item()
-        if not torch.allclose(lo, lo_ref, rtol=TOL, atol=TOL):
-            fail(f"rl_batched B={batch} n={n + m}: tril differs from the plain version (max abs {err:.3e})")
-        neg = ldlt_num_neg_eigvals(packed).tolist()
-        if neg != [m] * batch:
-            fail(f"rl_batched B={batch} n={n + m}: inertia {sorted(set(neg))}, expected {m}")
-        b = torch.tensor(rng.standard_normal((batch, n + m)), device=dev)
-        x = lk.refine_solve(guard_factor(packed, a64), a64, b)
-        res = ((a64 @ x[..., None])[..., 0] - b).abs().amax(dim=-1).max().item()
-        if not res <= RES_TOL:
-            fail(f"rl_batched B={batch} n={n + m}: refined residual {res:.3e} > {RES_TOL}")
-        ms = cuda_ms(lambda: lk.ldlt_factor_rl_batched(a32))
-        plain_ms = cuda_ms(lambda: lk.ldlt_factor_rl_batched_ref(a32))
-        loop_ms = cuda_ms(lambda: [lk.ldlt_factor_rl(a32[i]) for i in range(batch)])
-        print(
-            f"kernel ldlt_factor_rl_batched B={batch} n={n + m}: bitwise equal to ldlt_factor_rl "
-            f"on every lane, max_abs_err={err:.3e} inertia={m} refined_res={res:.3e} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} rl_loop_ms={loop_ms:.4f} [{card}]",
-            flush=True,
+            fail(f"{tag}: lanes {unequal[:8]} differ from ldlt_factor_rl")
+        err, ms, plain_ms = _factor_check(
+            tag, lk.ldlt_factor_rl_batched, lk.ldlt_factor_rl_batched_ref, a64, neg, rng, card
         )
+        loop_ms = cuda_ms(lambda: [lk.ldlt_factor_rl(a32[i]) for i in range(batch)])
+        print(f"{tag}: bitwise equal to ldlt_factor_rl on every lane, rl_loop_ms={loop_ms:.4f} [{card}]", flush=True)
         if record is None:
             record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
@@ -231,14 +350,59 @@ def batched_kernel_phase(card):
     return record
 
 
+def _solve_once(problem, params, device, x0, batched=False):
+    """One solve on ``device`` with the launch counters set to 0 before it;
+    returns the result, the launches it made and its wall seconds."""
+    import torch
+
+    from pygradflow_torch import Solver
+    from pygradflow_torch.linalg import ldlt_kernels as lk
+    from pygradflow_torch.parallel import BatchedSolver
+
+    x0 = torch.tensor(x0, device=device)
+    for key in lk.LAUNCHES:
+        lk.LAUNCHES[key] = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver = BatchedSolver(problem, params, device=device) if batched else Solver(problem, params, device=device)
+    res = solver.solve(x0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, dict(lk.LAUNCHES), time.perf_counter() - t0
+
+
+def _hold(label, res, ref, ref_label):
+    """A single solve against the run named ``ref_label``: Optimal both,
+    equal counts, x within X_TOL."""
+    import numpy as np
+
+    from pygradflow_torch import SolverStatus
+
+    if res.status != SolverStatus.Optimal or ref.status != SolverStatus.Optimal:
+        fail(f"{label}: status {res.status.name}, {ref_label} {ref.status.name}")
+    counts, ref_counts = (res.iterations, res.num_accepted_steps), (ref.iterations, ref.num_accepted_steps)
+    if counts != ref_counts:
+        fail(f"{label}: {counts} iterations/accepted, {ref_label} {ref_counts}")
+    x, x_ref = res.x.cpu().numpy(), ref.x.cpu().numpy()
+    if not np.isfinite(x).all() or x.shape != x_ref.shape:
+        fail(f"{label}: solution not finite or of the wrong shape")
+    dx = np.abs(x - x_ref).max()
+    if not dx <= X_TOL:
+        fail(f"{label}: x differs from {ref_label} by {dx:.3e}")
+    return dx
+
+
+def _expect_launches(label, used, only):
+    """``only`` the kernels named were launched, each at least once."""
+    if any((used[k] == 0) == (k in only) for k in used):
+        fail(f"{label}: launches {used}, expected only {sorted(only) or 'none'}")
+
+
 def slice_phase(card):
     """The pendulum at N=128 and N=256 on the card against the port's CPU run;
     returns the launch counts of the main path's run."""
-    import numpy as np
-    import torch
-
-    from pygradflow_torch import LinearSolverType, Params, Solver, SolverStatus
-    from pygradflow_torch.linalg import ldlt_kernels as lk
+    from pygradflow_torch import LinearSolverType, Params
     from pygradflow_torch.runners.control import PendulumControl
 
     params = Params(
@@ -247,42 +411,15 @@ def slice_phase(card):
         validate_input=False,
     )
     expect = {128: "rl", 256: "ll"}
-    cpu = {}
-    for N in expect:
-        problem = PendulumControl(N=N)
-        cpu[N] = Solver(problem, params, device="cpu").solve(problem.x0_trajectory())
-
-    for key in lk.LAUNCHES:
-        lk.LAUNCHES[key] = 0
-    totals = dict.fromkeys(lk.LAUNCHES, 0)
+    totals = dict.fromkeys(("rl", "ll", "rl_batched"), 0)
     for N, key in expect.items():
         problem = PendulumControl(N=N)
-        x0 = torch.tensor(problem.x0_trajectory(), device="cuda")
+        x0 = problem.x0_trajectory()
+        cpu, _, _ = _solve_once(problem, params, "cpu", x0)
         for run in ("first", "repeat"):
-            before = dict(lk.LAUNCHES)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = Solver(problem, params, device="cuda").solve(x0)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            used = {k: lk.LAUNCHES[k] - before[k] for k in before}
-            ref = cpu[N]
-            x = res.x.cpu().numpy()
-            if res.status != SolverStatus.Optimal or ref.status != SolverStatus.Optimal:
-                fail(f"N={N}: status {res.status.name} on cuda, {ref.status.name} on cpu")
-            if (res.iterations, res.num_accepted_steps) != (ref.iterations, ref.num_accepted_steps):
-                fail(
-                    f"N={N}: {res.iterations}/{res.num_accepted_steps} iterations/accepted "
-                    f"on cuda, {ref.iterations}/{ref.num_accepted_steps} on cpu"
-                )
-            if not np.isfinite(x).all() or x.shape != (problem.num_vars,):
-                fail(f"N={N}: solution not finite or of the wrong shape")
-            dx = np.abs(x - ref.x.cpu().numpy()).max()
-            if not dx <= X_TOL:
-                fail(f"N={N}: x differs from the cpu run by {dx:.3e}")
-            other = [k for k in used if k != key]
-            if used[key] == 0 or any(used[k] != 0 for k in other):
-                fail(f"N={N}: launches {used}, expected only {key!r}")
+            res, used, wall = _solve_once(problem, params, "cuda", x0)
+            dx = _hold(f"N={N}", res, cpu, "the cpu run")
+            _expect_launches(f"N={N}", used, {key})
             print(
                 f"slice N={N} ({run}): {res.status.name} {res.iterations}/"
                 f"{res.num_accepted_steps} launches={used} |x-x_cpu|={dx:.3e} "
@@ -406,6 +543,81 @@ def headline_phase(card):
     )
 
 
+def control_phase(card):
+    """Phase 7: the Schur tiers on the interleaved pendulum (BASELINE
+    config #4), each run held against the run named beside it; returns the
+    launches of the card runs through the mixed-precision tier."""
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import LinearSolverType, Params, SolverStatus, StepSolverType
+    from pygradflow_torch.runners.control import PendulumControlInterleaved
+
+    schur = dict(step_solver_type=StepSolverType.Schur, schur_block_size=3, iteration_limit=3000, validate_input=False)
+    staged = dict(schur, schur_dual_block_size=2, matrix_free=True)
+    pallas = dict(linear_solver_type=LinearSolverType.PallasLDLT)
+    totals = dict.fromkeys(("rl", "ll", "rl_batched"), 0)
+
+    def single(label, N, kwargs, only, refs):
+        """A card solve; ``refs`` maps a label to (device, kwargs) of the runs
+        it is held against (a card reference must launch no kernel)."""
+        problem = PendulumControlInterleaved(N=N)
+        x0 = problem.x0_trajectory()
+        res, used, wall = _solve_once(problem, Params(**kwargs), "cuda", x0)
+        _expect_launches(label, used, only)
+        held = []
+        for ref_label, (device, ref_kwargs) in refs.items():
+            ref, ref_used, _ = _solve_once(problem, Params(**ref_kwargs), device, x0)
+            _expect_launches(ref_label, ref_used, set())
+            held.append(f"|x-x_{ref_label}|={_hold(label, res, ref, ref_label):.3e}")
+        print(
+            f"control {label} N={N}: {res.status.name} {res.iterations}/{res.num_accepted_steps} "
+            f"launches={used} {' '.join(held)} wall={wall:.3f} s "
+            f"ms/iter={1e3 * wall / res.iterations:.2f} [{card}]",
+            flush=True,
+        )
+        for k in totals:
+            totals[k] += used[k]
+
+    # (a) the dense dual Schur complement, 514 x 514, through B1'
+    single("(a) dense dual PallasLDLT", 256, dict(schur, **pallas), {"rl"}, {"cpu": ("cpu", dict(schur, **pallas))})
+    # (b) matrix-free staged, BCR down to a 512-row root through B1'
+    single(
+        "(b) Schur+MF PallasLDLT", 1024, dict(staged, **pallas), {"rl"},
+        {"cuda_f64": ("cuda", staged), "cpu": ("cpu", dict(staged, **pallas))},
+    )
+    single("(b) Schur+MF PallasLDLT", 4096, dict(staged, **pallas), {"rl"}, {"cuda_f64": ("cuda", staged)})
+    # (c) the dense dual at N=1024 (2050 rows): the two-level factor, 2 x 1025 through B1'
+    single("(c) dense dual PallasLDLT", 1024, dict(schur, **pallas), {"rl"}, {"cuda_f64": ("cuda", schur)})
+
+    # (d), (e) the MPC fleet: root (B, 512, 512) at N=256 takes the panel
+    # factor as JAX routes it; root (B, 256, 256) at N=100 the batched kernel
+    params = Params(**staged, **pallas)
+    for label, N, only in (("(d)", 256, set()), ("(e)", 100, {"rl_batched"})):
+        problem = PendulumControlInterleaved(N=N)
+        rng = np.random.default_rng(0)
+        x0 = problem.x0_trajectory()[None, :] + 0.02 * rng.standard_normal((FLEET_B, problem.num_vars))
+        cpu, _, _ = _solve_once(problem, params, "cpu", x0[:CPU_LANES], batched=True)
+        res, used, wall = _solve_once(problem, params, "cuda", x0, batched=True)
+        _expect_launches(f"fleet {label}", used, only)
+        dx = _check_lanes(f"fleet {label} N={N}", res, cpu, slice(0, CPU_LANES))
+        if not torch.isfinite(res.x).all() or tuple(res.x.shape) != (FLEET_B, problem.num_vars):
+            fail(f"fleet {label} N={N}: solutions not finite or of the wrong shape")
+        optimal = int((res.status == int(SolverStatus.Optimal)).sum())
+        iters = int(res.iterations.max())
+        print(
+            f"control {label} fleet Schur+MF PallasLDLT N={N} B={FLEET_B}: {optimal}/{FLEET_B} "
+            f"Optimal, lockstep iterations {iters}, lanes 0-{CPU_LANES - 1} {res.iterations[0].item()}/"
+            f"{res.accepted_steps[0].item()} launches={used} |x-x_cpu|={dx:.3e} wall={wall:.3f} s "
+            f"solves/s={FLEET_B / wall:.1f} ms/iter={1e3 * wall / iters:.2f} [{card}]",
+            flush=True,
+        )
+        for k in totals:
+            totals[k] += used[k]
+    print(f"control launches: {totals}", flush=True)
+    return totals
+
+
 def main():
     try:
         import torch
@@ -424,11 +636,15 @@ def main():
 
     card = device_phase()
     build_phase()
-    records = kernel_phase(card)
-    records["rl_batched"] = batched_kernel_phase(card)
+    path = path_matrices("cuda")
+    records = kernel_phase(card, path)
+    two_level_phase(card, path)
+    records["rl_batched"] = batched_kernel_phase(card, path)
     launches = slice_phase(card)
     launches["rl_batched"] = fleet_phase(card)["rl_batched"]
     headline_phase(card)
+    for key, count in control_phase(card).items():
+        launches[key] += count
 
     summary = []
     for key, (name, replaces) in KERNELS.items():

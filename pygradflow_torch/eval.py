@@ -90,13 +90,19 @@ class Fns(NamedTuple):
     lag_hess: Callable
     num_vars: int
     num_cons: int
+    # products J^T w, J v and H v by autodiff, without the (m, n) Jacobian
+    # or the (n, n) Hessian
+    cons_vjp: Callable = None
+    cons_jvp: Callable = None
+    lag_hvp: Callable = None
+    # Params.matrix_free: the KKT residuals take J^T products through
+    # cons_vjp, and the iterate holds no Jacobian
+    matrix_free: bool = False
 
 
 def make_fns(problem: Problem, params: Params) -> Fns:
     """Evaluation closures casting every result to ``params.dtype``; any
     trailing arguments (a parametric problem's data) pass through."""
-    if params.matrix_free:
-        raise NotImplementedError("matrix_free is not yet ported (ROADMAP A9)")
     dtype = params.dtype
     n = problem.num_vars
     m = problem.num_cons
@@ -118,6 +124,12 @@ def make_fns(problem: Problem, params: Params) -> Fns:
         def cons_jac(x, *args):
             return problem.cons_jac(x, *args).to(dtype)
 
+        def cons_vjp(x, w, *args):
+            return problem.cons_vjp(x, w, *args).to(dtype)
+
+        def cons_jvp(x, v, *args):
+            return problem.cons_jvp(x, v, *args).to(dtype)
+
     else:
 
         def cons(x, *args):
@@ -126,7 +138,22 @@ def make_fns(problem: Problem, params: Params) -> Fns:
         def cons_jac(x, *args):
             return x.new_zeros(x.shape[:-1] + (0, n), dtype=dtype)
 
-    return Fns(obj, obj_grad, cons, cons_jac, lag_hess, n, m)
+        def cons_vjp(x, w, *args):
+            return torch.zeros_like(x, dtype=dtype)
+
+        def cons_jvp(x, v, *args):
+            return x.new_zeros(x.shape[:-1] + (0,), dtype=dtype)
+
+    def lag_hvp(x, y, v, *args):
+        return problem.lag_hvp(x, y, v, *args).to(dtype)
+
+    return Fns(
+        obj, obj_grad, cons, cons_jac, lag_hess, n, m,
+        cons_vjp=cons_vjp,
+        cons_jvp=cons_jvp,
+        lag_hvp=lag_hvp,
+        matrix_free=params.matrix_free,
+    )
 
 
 def lane_fns(fns: Fns, data=None) -> Fns:
@@ -140,16 +167,17 @@ def lane_fns(fns: Fns, data=None) -> Fns:
         batched = vmap(f)
         return lambda *xs: batched(*xs, *args)
 
+    cons_fns = ("cons", "cons_jac", "cons_vjp", "cons_jvp")
     if fns.num_cons > 0:
-        cons, cons_jac = lanes(fns.cons), lanes(fns.cons_jac)
+        per_lane = {name: lanes(getattr(fns, name)) for name in cons_fns}
     else:  # no constraints: nothing to evaluate per lane
-        cons, cons_jac = fns.cons, fns.cons_jac
+        per_lane = {}
     return fns._replace(
         obj=lanes(fns.obj),
         obj_grad=lanes(fns.obj_grad),
-        cons=cons,
-        cons_jac=cons_jac,
         lag_hess=lanes(fns.lag_hess),
+        lag_hvp=lanes(fns.lag_hvp),
+        **per_lane,
     )
 
 

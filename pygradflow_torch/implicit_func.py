@@ -57,22 +57,23 @@ def project_box(func: StepFunc, p, active_set):
     return torch.where(active_set, torch.clamp(p, func.proj_lb, func.proj_ub), p)
 
 
-def projection_initial(func: StepFunc, it: Iterate, rho):
+def projection_initial(func: StepFunc, it: Iterate, rho, fns=None):
     """Point whose projection defines the x-residual
-    (``ActiveSetType.Standard``: no tau)."""
-    d = aug_lag_deriv_x(it, rho)
+    (``ActiveSetType.Standard``: no tau).  ``fns`` carries the matrix-free
+    J^T product (``iterate._jac_t``)."""
+    d = aug_lag_deriv_x(it, rho, fns)
     if func.scaled:
         return lanes(func.lamb, 1) * func.orig.x - d
     return func.orig.x - lanes(func.dt, 1) * d
 
 
-def compute_active_set(func: StepFunc, it: Iterate, rho):
-    return active_set_at_point(func, projection_initial(func, it, rho))
+def compute_active_set(func: StepFunc, it: Iterate, rho, fns=None):
+    return active_set_at_point(func, projection_initial(func, it, rho, fns))
 
 
-def value_at(func: StepFunc, it: Iterate, rho, active_set=None):
+def value_at(func: StepFunc, it: Iterate, rho, active_set=None, fns=None):
     """Residual value ``(rx, ry)``."""
-    p = projection_initial(func, it, rho)
+    p = projection_initial(func, it, rho, fns)
     if active_set is None:
         active_set = active_set_at_point(func, p)
     proj = project_box(func, p, active_set)
@@ -87,6 +88,6 @@ def value_at(func: StepFunc, it: Iterate, rho, active_set=None):
     return rx, ry
 
 
-def value_norm(func: StepFunc, it: Iterate, rho, active_set=None):
-    rx, ry = value_at(func, it, rho, active_set)
+def value_norm(func: StepFunc, it: Iterate, rho, active_set=None, fns=None):
+    rx, ry = value_at(func, it, rho, active_set, fns)
     return torch.sqrt(dot(rx, rx) + dot(ry, ry))

@@ -26,14 +26,24 @@ class Iterate(NamedTuple):
 
 
 def evaluate_iterate(fns: Fns, x, y) -> Iterate:
-    """Evaluate obj, gradient, constraints and Jacobian once at ``(x, y)``."""
+    """Evaluate obj, gradient, constraints and Jacobian once at ``(x, y)``.
+
+    In matrix-free mode the Jacobian is not evaluated: ``cons_jac`` holds a
+    (..., 0, n) placeholder, every J^T product goes through
+    ``fns.cons_vjp`` (``_jac_t`` tells the placeholder by its shape and
+    raises when no ``fns`` was passed), and ``aug_lag_deriv_xx`` raises
+    where its J^T J term would read it."""
+    if fns.matrix_free:
+        jac = x.new_zeros(x.shape[:-1] + (0, x.shape[-1]))
+    else:
+        jac = fns.cons_jac(x)
     return Iterate(
         x=x,
         y=y,
         obj=fns.obj(x),
         obj_grad=fns.obj_grad(x),
         cons=fns.cons(x),
-        cons_jac=fns.cons_jac(x),
+        cons_jac=jac,
     )
 
 
@@ -60,19 +70,29 @@ def aug_lag(it: Iterate, rho):
     return it.obj + aug_lag_violation(it, rho) + aug_lag_dual(it)
 
 
-def _jac_t(it: Iterate, w):
-    return matvec(it.cons_jac.mT, w)
+def _jac_t(it: Iterate, w, fns=None):
+    """``J(x)^T w``: from the stored Jacobian, or through ``fns.cons_vjp``
+    when the iterate is matrix-free (its Jacobian the placeholder of
+    ``evaluate_iterate``, so the iterate alone decides)."""
+    if it.cons_jac.shape[-2] == w.shape[-1]:
+        return matvec(it.cons_jac.mT, w)
+    if fns is None:
+        raise ValueError("a matrix-free iterate needs fns for its J^T products")
+    return fns.cons_vjp(it.x, w)
 
 
-def aug_lag_deriv_x(it: Iterate, rho):
-    return it.obj_grad + _jac_t(it, lanes(rho, 1) * it.cons + it.y)
+def aug_lag_deriv_x(it: Iterate, rho, fns=None):
+    return it.obj_grad + _jac_t(it, lanes(rho, 1) * it.cons + it.y, fns)
 
 
 def aug_lag_deriv_xx(fns: Fns, it: Iterate, rho):
     """``H(x, y + rho c) + rho J^T J``; with ``rho == 0.0`` (a Python float)
-    the ``J^T J`` term is dropped, as the scaled step solvers need."""
+    the ``J^T J`` term is dropped, as the scaled step solvers need.  A
+    matrix-free iterate holds no Jacobian for that term and raises."""
     if isinstance(rho, float) and rho == 0.0:
         return fns.lag_hess(it.x, it.y + rho * it.cons)
+    if it.cons_jac.shape[-2] != it.cons.shape[-1]:
+        raise ValueError("a matrix-free iterate holds no Jacobian for the J^T J term")
     hess = fns.lag_hess(it.x, it.y + lanes(rho, 1) * it.cons)
     return hess + lanes(rho, 2) * (it.cons_jac.mT @ it.cons_jac)
 
@@ -98,9 +118,9 @@ def compute_active_set(x, lb, ub, active_tol) -> ActiveSet:
 # KKT residuals (reference iterate.py:140-181)
 
 
-def bounds_dual(it: Iterate, lb, ub, active_tol):
+def bounds_dual(it: Iterate, lb, ub, active_tol, fns=None):
     """Bound multipliers ``d`` from projected stationarity."""
-    r = -(it.obj_grad + _jac_t(it, it.y))
+    r = -(it.obj_grad + _jac_t(it, it.y, fns))
     aset = compute_active_set(it.x, lb, ub, active_tol)
     d = torch.zeros_like(it.x)
     d = torch.where(aset.at_upper, torch.clamp(r, min=0.0), d)
@@ -118,15 +138,15 @@ def cons_violation(it: Iterate):
     return inf_norm(it.cons)
 
 
-def stat_res(it: Iterate, lb, ub, active_tol):
-    d = bounds_dual(it, lb, ub, active_tol)
-    return inf_norm(it.obj_grad + _jac_t(it, it.y) + d)
+def stat_res(it: Iterate, lb, ub, active_tol, fns=None):
+    d = bounds_dual(it, lb, ub, active_tol, fns)
+    return inf_norm(it.obj_grad + _jac_t(it, it.y, fns) + d)
 
 
-def total_res(it: Iterate, lb, ub, active_tol):
+def total_res(it: Iterate, lb, ub, active_tol, fns=None):
     return torch.maximum(
         torch.maximum(cons_violation(it), bound_violation(it, lb, ub)),
-        stat_res(it, lb, ub, active_tol),
+        stat_res(it, lb, ub, active_tol, fns),
     )
 
 
@@ -134,11 +154,11 @@ def is_feasible(it: Iterate, lb, ub, tol):
     return (cons_violation(it) <= tol) & (bound_violation(it, lb, ub) <= tol)
 
 
-def locally_infeasible(it: Iterate, lb, ub, active_tol, feas_tol, local_infeas_tol):
+def locally_infeasible(it: Iterate, lb, ub, active_tol, feas_tol, local_infeas_tol, fns=None):
     """Infeasible stationarity (reference ``iterate.py:115-134``): the
     constraints are violated while the projected gradient of the violation
     measure vanishes.  A 0-dim bool tensor."""
-    r = _jac_t(it, it.cons)
+    r = _jac_t(it, it.cons, fns)
     aset = compute_active_set(it.x, lb, ub, active_tol)
     r = torch.where(aset.at_lower, torch.clamp(r, max=0.0), r)
     r = torch.where(aset.at_upper, torch.clamp(r, min=0.0), r)

@@ -5,11 +5,15 @@ Every backend has the same interface: factor, (transpose-)solve and the
 inertia query.  A failed factorization does not raise: it leaves NaN in the
 factor, and the step layer turns the non-finite step into a rejected one.
 
-This port serves two tiers, each for one matrix (n, n) or a lane stack
-(B, n, n):
+Each tier takes one matrix (n, n) or a lane stack (B, n, n):
 
 - ``LinearSolverType.LU``, the default: partial-pivot LU in plain torch
   (``plu.py``), as the JAX package computes it outside any kernel.
+- ``LinearSolverType.Cholesky``: ``torch.linalg.cholesky_ex``; a matrix
+  that is not positive definite gets a NaN factor, as JAX's ``cho_factor``
+  gives it.
+- ``LinearSolverType.LDLT``: the unpivoted f64 LDL^T with inertia, blocked
+  (``blocked_ldlt.py``) above ``LDLT_BLOCKED_MIN_N``, rank-1 below.
 - ``LinearSolverType.PallasLDLT``.  The enum keeps its name so that
   configurations carry over; on this port it is the hand-written-kernel
   mixed-precision tier: a packed f32 LDL^T from the CUDA kernels of
@@ -47,23 +51,24 @@ PANEL_BATCH_MIN_N = 512
 """Padded size from which a stack takes the panel-batched factor instead of
 the batched kernel (``pallas_ldlt.py:34``)."""
 
+LDLT_BLOCKED_MIN_N = 192
+"""Above this size the LDLT tier takes the blocked factor."""
+
 
 def factor_route(n: int, batched: bool = False) -> str:
     """How an (n, n) KKT matrix, or a stack of them, is factored.
 
-    One matrix: "rl" (right-looking kernel) up to PALLAS_MAX_N, "ll"
-    (left-looking kernel) up to PALLAS_HBM_MAX_N.  A stack, as the JAX
-    package's vmap rules route it: padded to 128 up to PALLAS_MAX_N, then
-    "rl_batched" (batched kernel) below PANEL_BATCH_MIN_N and "panels"
-    (``ldlt_factor_batched_panels``) from there; padded to 256 and "panels"
-    up to PALLAS_HBM_MAX_N."""
+    Above PALLAS_HBM_MAX_N: "two_level" (``ldlt_factor_two_level``), for one
+    matrix and a stack.  Below it, one matrix: "rl" (right-looking kernel)
+    up to PALLAS_MAX_N, "ll" (left-looking kernel) up to PALLAS_HBM_MAX_N.
+    A stack, as the JAX package's vmap rules route it: padded to 128 up to
+    PALLAS_MAX_N, then "rl_batched" (batched kernel) below
+    PANEL_BATCH_MIN_N and "panels" (``ldlt_factor_batched_panels``) from
+    there; padded to 256 and "panels" up to PALLAS_HBM_MAX_N."""
     from .ldlt_kernels import RL_BLOCK, _padded_size
 
     if n > PALLAS_HBM_MAX_N:
-        raise NotImplementedError(
-            f"KKT size {n} > {PALLAS_HBM_MAX_N} needs the two-level LDL^T "
-            "factorization, not yet ported (ROADMAP A8)"
-        )
+        return "two_level"
     if not batched:
         return "rl" if n <= PALLAS_MAX_N else "ll"
     if n <= PALLAS_MAX_N and _padded_size(n, RL_BLOCK) < PANEL_BATCH_MIN_N:
@@ -81,7 +86,7 @@ def _pallas_ldlt() -> LinearSolver:
         pad_identity,
         refine_solve,
     )
-    from .two_level_ldlt import guard_factor, ldlt_factor_batched_panels
+    from .two_level_ldlt import guard_factor, ldlt_factor_batched_panels, ldlt_factor_two_level
 
     def panels(mat):
         n = mat.shape[-1]
@@ -96,6 +101,7 @@ def _pallas_ldlt() -> LinearSolver:
         "ll": ldlt_factor_ll,
         "rl_batched": ldlt_factor_rl_batched,
         "panels": panels,
+        "two_level": ldlt_factor_two_level,
     }
 
     def factor(mat):
@@ -105,9 +111,12 @@ def _pallas_ldlt() -> LinearSolver:
         packed = kernel(mat.to(torch.float32).contiguous())
         return (guard_factor(packed, mat), mat)
 
-    def solve(fact, rhs):
+    def solve(fact, rhs, iters: int = 3):
+        """``iters=0`` skips the f64 refinement (the raw f32 back-solve),
+        for callers that refine around this solve themselves (the
+        mixed-precision Schur saddle refinement)."""
         packed, mat = fact
-        return refine_solve(packed, mat, rhs)
+        return refine_solve(packed, mat, rhs, iters=iters)
 
     def num_neg(fact):
         packed, _ = fact
@@ -122,9 +131,40 @@ def _lu() -> LinearSolver:
     return LinearSolver(plu_factor, plu_solve, plu_solve_trans, None, "lu")
 
 
+def _cholesky() -> LinearSolver:
+    """Positive definite matrices only: ``cholesky_ex`` does not raise, and
+    a lane whose factorization fails gets a NaN factor, which the step
+    layer rejects."""
+
+    def factor(mat):
+        lower, info = torch.linalg.cholesky_ex(mat)
+        return torch.where((info != 0)[..., None, None], float("nan"), lower)
+
+    def solve(fact, rhs):
+        return torch.cholesky_solve(rhs[..., None], fact)[..., 0]
+
+    def num_neg(fact):
+        return torch.zeros(fact.shape[:-2], dtype=torch.int64, device=fact.device)
+
+    return LinearSolver(factor, solve, solve, num_neg, "cholesky")
+
+
+def _ldlt() -> LinearSolver:
+    """f64 LDL^T with inertia.  JAX takes the blocked factor for a 2-D
+    matrix above LDLT_BLOCKED_MIN_N, which under its BatchedSolver's vmap is
+    every lane; so here each matrix of a stack takes it too."""
+    from .blocked_ldlt import ldlt_factor_blocked
+    from .ldlt import ldlt_factor, ldlt_num_neg_eigvals, ldlt_solve
+
+    def factor(mat):
+        if mat.shape[-1] > LDLT_BLOCKED_MIN_N:
+            return ldlt_factor_blocked(mat)
+        return ldlt_factor(mat)
+
+    return LinearSolver(factor, ldlt_solve, ldlt_solve, ldlt_num_neg_eigvals, "ldlt")
+
+
 _ROADMAP = {
-    LinearSolverType.Cholesky: "A4",
-    LinearSolverType.LDLT: "A4",
     LinearSolverType.MINRES: "A8",
     LinearSolverType.GMRES: "A8",
 }
@@ -134,6 +174,10 @@ def linear_solver(solver_type: LinearSolverType, symmetric: bool = False) -> Lin
     """Factory keyed on ``LinearSolverType``."""
     if solver_type == LinearSolverType.LU:
         return _lu()
+    if solver_type == LinearSolverType.Cholesky:
+        return _cholesky()
+    if solver_type == LinearSolverType.LDLT:
+        return _ldlt()
     if solver_type == LinearSolverType.PallasLDLT:
         return _pallas_ldlt()
     if solver_type in _ROADMAP:

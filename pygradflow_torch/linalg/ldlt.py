@@ -26,17 +26,21 @@ def ldlt_factor(mat):
 
 
 def ldlt_solve(fact, rhs):
-    """Solve ``L D L^T x = rhs`` from the packed factor, for one system or
-    a stack: ``rhs`` is (..., n) against (..., n, n).  The triangular
-    solves stay library calls, as they were XLA ops outside any kernel in
-    the JAX package."""
+    """Solve ``L D L^T x = rhs`` from the packed factor (..., n, n).
+
+    ``rhs`` is a vector (..., n), or, when it has as many dimensions as
+    ``fact``, a matrix (..., k, n) of k right-hand sides: the system
+    dimension is last either way, as in the JAX package.  The triangular
+    solves stay library calls, as they were XLA ops outside any kernel."""
     n = fact.shape[-1]
     lower = torch.tril(fact, diagonal=-1) + torch.eye(n, dtype=fact.dtype, device=fact.device)
     d = torch.diagonal(fact, dim1=-2, dim2=-1)
-    z = torch.linalg.solve_triangular(lower, rhs[..., None], upper=False, unitriangular=True)
+    vector = rhs.ndim == fact.ndim - 1
+    b = rhs[..., None] if vector else rhs.mT  # (..., n, k)
+    z = torch.linalg.solve_triangular(lower, b, upper=False, unitriangular=True)
     z = z / d[..., None]
     x = torch.linalg.solve_triangular(lower.mT, z, upper=True, unitriangular=True)
-    return x[..., 0]
+    return x[..., 0] if vector else x.mT
 
 
 def ldlt_num_neg_eigvals(fact):

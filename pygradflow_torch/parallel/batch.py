@@ -166,8 +166,10 @@ class LaneLoop:
         it = state.it
         lb, ub = self.lb, self.ub
         unbounded = (it.obj <= params.obj_lower_limit) & is_feasible(it, lb, ub, params.opt_tol)
-        infeas = locally_infeasible(it, lb, ub, params.active_tol, params.opt_tol, params.local_infeas_tol)
-        optimal = total_res(it, lb, ub, params.active_tol) <= params.opt_tol
+        infeas = locally_infeasible(
+            it, lb, ub, params.active_tol, params.opt_tol, params.local_infeas_tol, self.fns
+        )
+        optimal = total_res(it, lb, ub, params.active_tol, self.fns) <= params.opt_tol
         status = torch.full_like(state.status, RUNNING)
         status = torch.where(unbounded, int(SolverStatus.Unbounded), status)
         status = torch.where(infeas, int(SolverStatus.LocallyInfeasible), status)
@@ -226,7 +228,7 @@ class LaneLoop:
     def finalize(self, state: LaneState):
         params = self.params
         it = state.it
-        d = bounds_dual(it, self.lb, self.ub, params.active_tol)
+        d = bounds_dual(it, self.lb, self.ub, params.active_tol, self.fns)
         x, y, d = self.transform.restore_sol(it.x, it.y, d)
         return BatchResult(
             x=x,
@@ -235,9 +237,9 @@ class LaneLoop:
             status=state.status,
             iterations=state.iteration,
             accepted_steps=state.accepted_steps,
-            total_res=total_res(it, self.lb, self.ub, params.active_tol),
+            total_res=total_res(it, self.lb, self.ub, params.active_tol, self.fns),
             cons_violation=cons_violation(it),
-            stat_res=stat_res(it, self.lb, self.ub, params.active_tol),
+            stat_res=stat_res(it, self.lb, self.ub, params.active_tol, self.fns),
             counters=state.counters,
         )
 
@@ -326,6 +328,8 @@ class BatchedSolver:
             compact = x.shape[0] >= 4 * self.min_tier
         if compact:
             state = self._solve_compacting(state, data, timer)
+            if self.parametric:  # finalize reads every lane's data again
+                loop.bind(data)
         else:
             while True:
                 state = loop.run_chunk(state, params.jit_chunk)

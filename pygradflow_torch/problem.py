@@ -110,16 +110,16 @@ class Problem(abc.ABC):
         over the reverse-mode Lagrangian gradient."""
         return jacfwd(lambda x_: self._lag_grad(x_, y, *args))(x)
 
-    def lag_hvp(self, x, y, v):
+    def lag_hvp(self, x, y, v, *args):
         """Hessian-vector product ``H(x, y) @ v`` without the Hessian."""
-        return jvp(lambda x_: self._lag_grad(x_, y), (x,), (v,))[1]
+        return jvp(lambda x_: self._lag_grad(x_, y, *args), (x,), (v,))[1]
 
-    def cons_vjp(self, x, w):
+    def cons_vjp(self, x, w, *args):
         """``J(x)^T w`` without the Jacobian (reverse mode)."""
-        _, jtv = vjp(self.cons, x)
+        _, jtv = vjp(lambda x_: self.cons(x_, *args), x)
         return jtv(w)[0]
 
-    def cons_jvp(self, x, v):
+    def cons_jvp(self, x, v, *args):
         """``J(x) v`` without the Jacobian (forward mode)."""
-        return jvp(self.cons, (x,), (v,))[1]
+        return jvp(lambda x_: self.cons(x_, *args), (x,), (v,))[1]
 

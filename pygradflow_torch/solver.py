@@ -119,9 +119,9 @@ class SolveLoop:
 
         unbounded = (it.obj <= params.obj_lower_limit) & is_feasible(it, lb, ub, params.opt_tol)
         infeas = locally_infeasible(
-            it, lb, ub, params.active_tol, params.opt_tol, params.local_infeas_tol
+            it, lb, ub, params.active_tol, params.opt_tol, params.local_infeas_tol, self.fns
         )
-        optimal = total_res(it, lb, ub, params.active_tol) <= params.opt_tol
+        optimal = total_res(it, lb, ub, params.active_tol, self.fns) <= params.opt_tol
         unbounded, infeas, optimal = torch.stack([unbounded, infeas, optimal]).tolist()
 
         status = RUNNING
@@ -281,11 +281,11 @@ class Solver:
             )
 
         it = state.it
-        d = bounds_dual(it, loop.lb, loop.ub, params.active_tol)
+        d = bounds_dual(it, loop.lb, loop.ub, params.active_tol, loop.fns)
         direct_dist, final_stat_res, final_cons_violation, final_obj = torch.stack(
             [
                 torch.sqrt(torch.sum((it.x - x) ** 2) + torch.sum((it.y - y) ** 2)),
-                stat_res(it, loop.lb, loop.ub, params.active_tol),
+                stat_res(it, loop.lb, loop.ub, params.active_tol, loop.fns),
                 cons_violation(it),
                 it.obj,
             ]

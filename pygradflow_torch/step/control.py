@@ -60,7 +60,7 @@ class ControlCfg(NamedTuple):
 
 
 def make_control_cfg(fns, params: Params, lb, ub) -> ControlCfg:
-    ssdef = step_solver_def(params)
+    ssdef = step_solver_def(params, fns)
     ncfg = NewtonCfg(fns=fns, params=params, lb=lb, ub=ub, ssdef=ssdef)
     newton_init, newton_step = make_newton(ncfg)
     return ControlCfg(
@@ -114,7 +114,9 @@ def _distance_ratio(cfg: ControlCfg):
 
         step1, carry, counters = cfg.newton_step(carry, orig, counters)
         mid_it, counters = _evaluate(cfg, step1.xn, step1.yn, counters)
-        mid_norm, diff1 = torch.stack([impl.value_norm(func, mid_it, rho), step1.diff]).tolist()
+        mid_norm, diff1 = torch.stack(
+            [impl.value_norm(func, mid_it, rho, fns=cfg.fns), step1.diff]
+        ).tolist()
         first = (mid_it.x, mid_it.y)
 
         conv1 = mid_norm <= params.newton_tol
@@ -160,7 +162,7 @@ def _distance_ratio_lanes(cfg: ControlCfg):
 
         step1, carry, counters = cfg.newton_step(carry, orig, counters)
         mid_it, counters = _evaluate(cfg, step1.xn, step1.yn, counters)
-        conv1 = impl.value_norm(func, mid_it, rho) <= params.newton_tol
+        conv1 = impl.value_norm(func, mid_it, rho, fns=cfg.fns) <= params.newton_tol
         early = conv1 | (step1.diff == 0.0)
         lamb_early = torch.where(conv1, torch.clamp(lamb * params.lamb_red, min=params.lamb_min), lamb)
 

@@ -10,6 +10,11 @@ matrix symmetric for LDL^T and its inertia test (m negative eigenvalues).
 Assembly and solve serve one instance and a lane stack alike: with a
 (B,) ``lamb`` and ``rho`` the KKT matrices are a (B, n+m, n+m) stack and
 the linear solver factors them together.
+
+``StepSolverType.Schur`` dispatches as in the JAX package: the dense or
+block-tridiagonal dual (``schur.py``), or with ``matrix_free`` the staged
+tier (``schur_staged.py``); the ``PallasLDLT`` tier serves their dual
+factor, every other linear solver type the f64 path.
 """
 
 from typing import Any, NamedTuple
@@ -19,7 +24,7 @@ import torch
 from .. import implicit_func as impl
 from ..iterate import Iterate
 from ..linalg import LinearSolver, linear_solver
-from ..params import Params, StepSolverType
+from ..params import LinearSolverType, Params, StepSolverType
 from ..util import lanes, matvec, norm_mult
 
 
@@ -71,17 +76,56 @@ class StepSolverDef(NamedTuple):
     hess_rho_is_runtime: bool
     factor: Any  # (func, H, J, active, rho) -> Factorization
     solve: Any  # (factorization, func, cur_it, rho) -> (dx, dy)
+    # a matrix-free def factors from (func, iterate, active, rho) and finds
+    # the blocks it needs by jvp/hvp probes (step/schur_staged.py)
+    matrix_free: bool = False
 
 
-def step_solver_def(params: Params) -> StepSolverDef:
+def _lower_block(m, lamb, rho, dtype, device):
+    """The (…, m, m) lower-right block ``-lambda fact I`` of the scaled
+    system, one per lane for a (B,) ``lamb``."""
+    fact = 1.0 / (1.0 + lamb * rho)
+    return -lanes(lamb * fact, 2) * torch.eye(m, dtype=dtype, device=device)
+
+
+def step_solver_def(params: Params, fns=None) -> StepSolverDef:
+    """The configured formulation; ``fns`` (the evaluation closures, lane
+    closures in a batch) is what the matrix-free Schur def probes."""
     if params.step_solver is not None:
         raise NotImplementedError(
             "custom step solvers (params.step_solver) are not yet ported (ROADMAP A5)"
         )
-    if params.step_solver_type != StepSolverType.Symmetric:
-        item = "A9" if params.step_solver_type == StepSolverType.Schur else "A5"
+    solver_type = params.step_solver_type
+    if params.matrix_free and solver_type != StepSolverType.Schur:
+        raise ValueError(
+            "matrix_free requires StepSolverType.Schur (the other "
+            "formulations assemble the dense KKT system)"
+        )
+    if solver_type == StepSolverType.Schur:
+        from .schur import schur_def
+
+        if params.schur_block_size is None:
+            raise ValueError("StepSolverType.Schur requires params.schur_block_size")
+        schur_lin = (
+            linear_solver(params.linear_solver_type, symmetric=True)
+            if params.linear_solver_type == LinearSolverType.PallasLDLT
+            else None
+        )
+        if params.matrix_free:
+            from .schur_staged import schur_staged_def
+
+            if params.schur_dual_block_size is None:
+                raise ValueError(
+                    "matrix_free Schur requires params.schur_dual_block_size "
+                    "(stage-local constraints)"
+                )
+            return schur_staged_def(
+                schur_lin, fns, params.schur_block_size, params.schur_dual_block_size
+            )
+        return schur_def(schur_lin, params.schur_block_size, params.schur_dual_block_size)
+    if solver_type != StepSolverType.Symmetric:
         raise NotImplementedError(
-            f"step solver {params.step_solver_type.name} is not yet ported (ROADMAP {item})"
+            f"step solver {solver_type.name} is not yet ported (ROADMAP A5)"
         )
     if params.report_rcond:
         raise NotImplementedError("report_rcond is not yet ported (ROADMAP A4)")
@@ -102,8 +146,7 @@ def _symmetric_def(lin: LinearSolver, inertia_correction: bool) -> StepSolverDef
 
         M11 = torch.where(both_inact, Hl, 0.0) + torch.diag_embed(active.to(H.dtype))
         M12 = torch.where(inact[..., :, None], J.mT, 0.0)
-        fact = 1.0 / (1.0 + lamb * rho)
-        M22 = -lanes(lamb * fact, 2) * torch.eye(m, dtype=H.dtype, device=H.device)
+        M22 = _lower_block(m, lamb, rho, H.dtype, H.device)
 
         mat = torch.cat(
             [torch.cat([M11, M12], dim=-1), torch.cat([M12.mT, M22], dim=-1)], dim=-2

@@ -59,6 +59,27 @@ def test_batched_kernel_equals_single_kernel(cuda):
     assert ldlt_num_neg_eigvals(packed).tolist() == [130] * 5
 
 
+def test_two_level_factor_matches_plain(cuda):
+    """The two-level factor at n = 2050 (the dual Schur complement at
+    N = 1024): two 1025-wide diagonal blocks through B1', one launch each,
+    against the same factor on the CPU, where the blocks take B1's plain
+    version."""
+    from pygradflow_torch.linalg.two_level_ldlt import ldlt_factor_two_level
+
+    a = saddle(np.random.default_rng(7), 1250, 800)
+    a32 = torch.tensor(a, dtype=torch.float32)
+    before = lk.LAUNCHES["rl"]
+    packed = ldlt_factor_two_level(a32.to(cuda))
+    assert lk.LAUNCHES["rl"] == before + 2
+    ref = ldlt_factor_two_level(a32)
+    torch.testing.assert_close(torch.tril(packed).cpu(), torch.tril(ref), rtol=2e-3, atol=2e-3)
+    assert int(ldlt_num_neg_eigvals(packed)) == 800
+    b = torch.tensor(np.random.default_rng(8).standard_normal(2050), device=cuda)
+    a64 = torch.tensor(a, device=cuda)
+    x = lk.refine_solve(packed, a64, b)
+    assert (a64 @ x - b).abs().max().item() <= 1e-8
+
+
 def test_pendulum_on_cuda_matches_cpu(cuda):
     params = Params(linear_solver_type=LinearSolverType.PallasLDLT, validate_input=False)
     problem = PendulumControl(N=8)

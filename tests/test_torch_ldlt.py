@@ -126,8 +126,44 @@ def test_factor_route(n, route):
 
 
 def test_factor_route_above_hbm_limit_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        factor_route(PALLAS_HBM_MAX_N + 1)
+    """Above the left-looking kernel's limit both a matrix and a stack take
+    the two-level factor (``two_level_ldlt.ldlt_factor_two_level``), which
+    was ROADMAP A8 and is ported now."""
+    assert factor_route(PALLAS_HBM_MAX_N + 1) == "two_level"
+    assert factor_route(PALLAS_HBM_MAX_N + 1, batched=True) == "two_level"
+
+
+def test_ldlt_solve_takes_a_matrix_rhs():
+    """A right-hand side with as many dimensions as the factor is (..., k, n),
+    k systems per factor, as in JAX; before, the lane axis was broadcast
+    against k and the answer was wrong without an error."""
+    rng = np.random.default_rng(0)
+    h = rng.standard_normal((2, 3, 3))
+    a = h @ h.transpose(0, 2, 1) + 3 * np.eye(3)
+    b = rng.standard_normal((2, 2, 3))
+    fact = ldlt_factor(tensor(a))
+    x = numpy(ldlt_solve(fact, tensor(b)))
+    ref = np.asarray(jax_ldlt_solve(jax_ldlt_factor(jnp.asarray(a)), jnp.asarray(b)))
+    np.testing.assert_allclose(x, ref, rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(x, np.linalg.solve(a, b.transpose(0, 2, 1)).transpose(0, 2, 1), atol=1e-12)
+    # one factor, a (k, n) matrix of right-hand sides
+    x0 = numpy(ldlt_solve(fact[0], tensor(b[0])))
+    np.testing.assert_allclose(x0, np.linalg.solve(a[0], b[0].T).T, atol=1e-12)
+
+
+def test_pallas_tier_solve_takes_iters():
+    """``iters=0`` is the raw f32 back-solve (the Schur callers refine around
+    it); the default three passes reach f64 accuracy, as in JAX."""
+    rng = np.random.default_rng(7)
+    a = saddle(rng, 50, 14)
+    b = rng.standard_normal(64)
+    lin = linear_solver(LinearSolverType.PallasLDLT, symmetric=True)
+    fact = lin.factor(tensor(a))
+    raw = numpy(lin.solve(fact, tensor(b), iters=0))
+    f32 = numpy(ldlt_solve(fact[0], tensor(b).to(torch.float32)).to(torch.float64))
+    np.testing.assert_array_equal(raw, f32)
+    refined = numpy(lin.solve(fact, tensor(b)))
+    assert np.abs(a @ refined - b).max() <= RES_TOL < np.abs(a @ raw - b).max()
 
 
 def test_linear_solver_tier():

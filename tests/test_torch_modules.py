@@ -206,12 +206,12 @@ def test_import_leaves_jax_out():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        (dict(linear_solver_type="Cholesky"), "A4"),
+        (dict(ANCHOR, report_rcond=True), "A4"),
         (dict(ANCHOR, scaling_type="GradJac"), "A2"),
         (dict(ANCHOR, newton_type="Full"), "A5"),
         (dict(ANCHOR, step_control_type="Exact"), "A5"),
         (dict(ANCHOR, penalty_update="Constant"), "A5"),
-        (dict(ANCHOR, step_solver_type="Schur"), "A9"),
+        (dict(linear_solver_type="MINRES"), "A8"),
         (dict(ANCHOR, collect_path=True), "A6"),
         (dict(ANCHOR, precision="Single"), "A7"),
     ],
