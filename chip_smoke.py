@@ -6,21 +6,30 @@
 Phases, one line each (any failed check raises and the exit code is not 0):
 
 1. device: the card's name and power limit, from nvidia-smi;
-2. build: the hand-written kernels of ``pygradflow_torch/csrc`` with nvcc;
+2. build: the hand-written kernels of ``pygradflow_torch/csrc`` with nvcc,
+   and what ``-Xptxas -v`` says of the panel-factor kernels (registers; a
+   spill fails the run);
 3. kernels: each kernel against its plain PyTorch version on the card, on
    saddle matrices made with numpy from a seed and on the matrices phase 7
    gives the kernels (built by the port's Schur step at the interleaved
    pendulum's start point: the dense dual S at N = 256, the BCR root at
    N = 1024, both diagonal blocks of the two-level factor at N = 1024, the
    fleet's BCR roots at N = 100): the lower triangle of the packed factor
-   to rtol = atol = 2e-3, the inertia exactly, the f64 refined solve to
-   |Ax - b|_inf <= 1e-9, NaN for a zero pivot, and the median of
-   CUDA-event times over 10 runs after a warm-up.  The two-level factor of
-   that S (2 x 1025) is held the same way against its super-blocks through
-   B1's plain version.  The batched kernel also equals the right-looking
-   kernel on every instance bit for bit, leaves NaN only in the lane of a
-   zero pivot, and is timed beside B sequential calls of the right-looking
-   kernel;
+   to rtol = atol = 2e-3, the first panel's NB columns bit for bit (the
+   whole factor on a matrix that fits one panel), the inertia exactly, the
+   f64 refined solve to |Ax - b|_inf <= 1e-9, NaN for a zero pivot inside
+   a panel and at either side of a panel edge (k = NB - 1, NB), and the
+   median of CUDA-event times over 10 runs after a warm-up, beside the
+   bound (n^3 / 3 FLOPs at the f32 peak or the bytes at the memory rate)
+   and, for the negative definite matrices of phase 7, the library
+   yardstick ``torch.linalg.cholesky(-S)``.  The two-level factor of that
+   S (2 x 1025) is held the same way against its super-blocks through B1's
+   plain version.  The batched kernel also equals the right-looking kernel
+   on every instance bit for bit, leaves NaN only in the lane of a zero
+   pivot, and is timed beside B sequential calls of the right-looking
+   kernel.  Last, torch.profiler splits one factor at n = 644 (B1') and
+   1284 (B3') into the device time of each CUDA kernel, and of each panel's
+   diagonal-block and rows-below launches;
 4. slice: the pendulum swing-up at N = 128 (KKT 644, right-looking kernel)
    and N = 256 (KKT 1284, left-looking kernel) solved by ``Solver`` on the
    card with the mixed-precision LDL^T tier, held against the port's own CPU
@@ -65,11 +74,16 @@ SEED = 7
 TOL = 2e-3  # packed f32 factors of two summation orders (tests/test_pallas_ldlt.py)
 RES_TOL = 1e-9
 X_TOL = 1e-6
-# (n, m) of each saddle; the first of each kernel has the pendulum's shape
-KERNEL_SIZES = {"rl": [(386, 258), (960, 320)], "ll": [(770, 514), (1536, 512)]}
+# (n, m) of each saddle; the first of each kernel has the pendulum's shape,
+# the last fits one panel (n <= NB), where the whole factor is bitwise
+KERNEL_SIZES = {"rl": [(386, 258), (960, 320), (60, 40)], "ll": [(770, 514), (1536, 512), (30, 20)]}
 MAIN_PATH_SIZE = {"rl": 644, "ll": 1284}  # KKT of the pendulum at N=128 / N=256
 # (B, n, m) of each batched stack; the first is the fleet's (N=64, KKT 324)
-BATCHED_SIZES = [(128, 194, 130), (8, 60, 20)]
+BATCHED_SIZES = [(128, 194, 130), (8, 60, 20), (8, 60, 40)]
+# the card's peaks for the bound (NVIDIA H100 SXM data sheet): f32 without
+# tensor cores, and HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 KERNELS = {
     "rl": ("ldlt_factor_rl", "pygradflow_tpu/linalg/pallas_ldlt.py:112"),
     "ll": ("ldlt_factor_ll", "pygradflow_tpu/linalg/pallas_ldlt_hbm.py:162"),
@@ -110,6 +124,19 @@ def cuda_ms(fn, runs=10):
     return times[len(times) // 2]
 
 
+def bound(shape):
+    """Least time (ms) the card could take to factor a matrix or stack of
+    ``shape``: the larger of n^3 / 3 FLOPs per matrix at the f32 peak and
+    the input read once plus the factor written once at the memory rate."""
+    batch = 1
+    for d in shape[:-2]:
+        batch *= d
+    n = shape[-1]
+    flop_ms = 1e3 * batch * n**3 / 3 / PEAK_F32_FLOPS
+    byte_ms = 1e3 * batch * 2 * 4 * n * n / PEAK_BYTES
+    return (flop_ms, "operations") if flop_ms >= byte_ms else (byte_ms, "bytes")
+
+
 def device_phase():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -120,11 +147,41 @@ def device_phase():
     return card
 
 
+def ptxas_report(log):
+    """{kernel: (registers, spill bytes)} from ``nvcc -Xptxas -v`` output."""
+    import re
+
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            report[name] = [None, int(m.group(1)) + int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in report:
+            report[name][0] = int(m.group(1))
+    return report
+
+
 def build_phase():
+    """Builds the kernels and prints what ptxas says of the panel-factor
+    kernels; a spill there fails the run."""
     from pygradflow_torch import build
 
     build.load_library()
     print(f"build: {build.BUILD_SECONDS:.1f} s ({build.library_path().parent.name})", flush=True)
+    report = ptxas_report((build.library_path().parent / "build.log").read_text())
+    panel = {k: v for k, v in report.items() if "diag_block_kernel" in k or "panel_rows_kernel" in k}
+    if len(panel) != 4:
+        fail(f"build: expected the diagonal-block and rows kernels at NB=64 and 128 in the ptxas report, got {sorted(panel)}")
+    for mangled, (regs, spill) in sorted(panel.items()):
+        name = "diag_block_kernel" if "diag_block_kernel" in mangled else "panel_rows_kernel"
+        nb = 128 if "ILi128E" in mangled else 64
+        print(f"build: {name}<{nb}> {regs} registers, {spill} spill bytes", flush=True)
+        if spill:
+            fail(f"build: {name}<{nb}> spills {spill} bytes")
 
 
 def path_matrices(device):
@@ -193,10 +250,13 @@ def path_matrices(device):
     }
 
 
-def _factor_check(label, kernel, plain, a64, neg_expected, rng, card):
+def _factor_check(label, kernel, plain, a64, neg_expected, rng, card, block=None, library=None):
     """``kernel`` against ``plain`` on the f32 cast of ``a64`` (a matrix or a
-    stack): the lower triangles to TOL, the inertia, the refined residual;
-    prints one line and returns the max abs error, ms and plain ms."""
+    stack): the lower triangles to TOL, the first ``block`` columns bit for
+    bit (the whole factor when n <= block), the inertia, the refined
+    residual; times the kernel, the plain version and ``library`` (one
+    PyTorch call of the same factor, up to scale, or None); prints one line
+    and returns a record for the summary."""
     import torch
 
     from pygradflow_torch.linalg import ldlt_kernels as lk
@@ -211,6 +271,9 @@ def _factor_check(label, kernel, plain, a64, neg_expected, rng, card):
     err = (lo - lo_ref).abs().max().item()
     if not torch.allclose(lo, lo_ref, rtol=TOL, atol=TOL):
         fail(f"{label}: tril differs from the plain version (max abs {err:.3e})")
+    n = a64.shape[-1]
+    if block is not None and not torch.equal(packed[..., :block], ref[..., :block]):
+        fail(f"{label}: the first {min(n, block)} of {n} columns not bit for bit equal to the plain version")
     neg = ldlt_num_neg_eigvals(packed).reshape(-1).tolist()
     neg_ref = ldlt_num_neg_eigvals(ref).reshape(-1).tolist()
     if not neg == neg_ref == [neg_expected] * len(neg):
@@ -222,18 +285,43 @@ def _factor_check(label, kernel, plain, a64, neg_expected, rng, card):
         fail(f"{label}: refined residual {res:.3e} > {RES_TOL}")
     ms = cuda_ms(lambda: kernel(a32))
     plain_ms = cuda_ms(lambda: plain(a32))
+    library_ms = None if library is None else cuda_ms(lambda: library(a32))
+    bound_ms, bound_by = bound(tuple(a64.shape))
+    bits = "" if block is None else f" bitwise=first {min(n, block)} of {n} columns"
+    lib = "" if library_ms is None else f" cholesky_ms={library_ms:.4f}"
     print(
-        f"{label}: max_abs_err={err:.3e} inertia={neg_expected} refined_res={res:.3e} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} [{card}]",
+        f"{label}: max_abs_err={err:.3e}{bits} inertia={neg_expected} refined_res={res:.3e} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f}{lib} bound_ms={bound_ms:.6f} ({bound_by}) [{card}]",
         flush=True,
     )
-    return err, ms, plain_ms
+    return dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_us=1e3 * bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+    )
+
+
+def _cholesky_of_negated(a32):
+    """The library yardstick for a negative definite S: cuSOLVER's f32
+    Cholesky of -S, the same factor up to scale (L_chol = L diag(sqrt(-D)));
+    timed only here, never called by the port."""
+    import torch
+
+    return torch.linalg.cholesky(-a32)
+
+
+def _zero_pivot(a, k, lane=None):
+    """``a`` with row and column k zeroed (in one lane of a stack)."""
+    a = a.copy()
+    at = a if lane is None else a[lane]
+    at[k, :] = 0.0
+    at[:, k] = 0.0
+    return a
 
 
 def kernel_phase(card, path):
     """Each kernel against its plain version on the card, on saddle matrices
     and on the matrices ``path`` of phase 7; returns per-kernel records at
-    the main path's sizes."""
+    the main path's sizes, each with a list of the path's cases."""
     import numpy as np
     import torch
 
@@ -247,31 +335,37 @@ def kernel_phase(card, path):
         name, _ = KERNELS[key]
         kernel = getattr(lk, name)
         plain = getattr(lk, name + "_ref")
+        block = lk.LL_BLOCK if key == "ll" else lk.RL_BLOCK
+        cases = []
 
-        def cases():
+        def inputs():
             for n, m in sizes:
-                yield "saddle", torch.tensor(saddle(rng, n, m), device=dev), m
+                yield "saddle", torch.tensor(saddle(rng, n, m), device=dev), m, None
             for label, mat, neg in path.get(key, ()):
-                yield label, mat.to(torch.float64), neg
+                yield label, mat.to(torch.float64), neg, _cholesky_of_negated
 
-        for label, a64, neg in cases():
+        for label, a64, neg, library in inputs():
             n = a64.shape[-1]
-            err, ms, plain_ms = _factor_check(f"kernel {name} n={n} ({label})", kernel, plain, a64, neg, rng, card)
+            rec = _factor_check(
+                f"kernel {name} n={n} ({label})", kernel, plain, a64, neg, rng, card, block, library
+            )
             if n == MAIN_PATH_SIZE[key] and label == "saddle":
-                records[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                records[key] = rec
+            if library is not None:
+                cases.append(dict(case=label, shape=list(a64.shape), **rec))
+        records[key]["cases"] = cases
 
-        # a zero pivot inside a later panel poisons the factor with NaN
-        a = saddle(rng, *sizes[0])
-        k = 200
-        a[k, :] = 0.0
-        a[:, k] = 0.0
-        a32 = torch.tensor(a, dtype=torch.float32, device=dev)
-        for label, packed in (("kernel", kernel(a32)), ("plain", plain(a32))):
-            if not torch.isnan(torch.diagonal(packed)[k:]).any():
-                fail(f"{name}: zero pivot at {k} left no NaN in the {label} factor")
-            if not torch.isnan(guard_factor(packed, a32)).all():
-                fail(f"{name}: guard did not poison the {label} factor")
-        print(f"kernel {name}: zero pivot at {k} gives NaN", flush=True)
+        # a zero pivot inside a later panel, at a panel's last column and at
+        # the next panel's first poisons the factor with NaN
+        base = saddle(rng, *sizes[0])
+        for k in (200, block - 1, block):
+            a32 = torch.tensor(_zero_pivot(base, k), dtype=torch.float32, device=dev)
+            for label, packed in (("kernel", kernel(a32)), ("plain", plain(a32))):
+                if not torch.isnan(torch.diagonal(packed)[k:]).any():
+                    fail(f"{name}: zero pivot at {k} left no NaN in the {label} factor")
+                if not torch.isnan(guard_factor(packed, a32)).all():
+                    fail(f"{name}: guard did not poison the {label} factor")
+            print(f"kernel {name}: zero pivot at {k} gives NaN", flush=True)
     return records
 
 
@@ -308,15 +402,16 @@ def batched_kernel_phase(card, path):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    record = None
+    record, cases = None, []
 
-    def cases():
+    def inputs():
         for batch, n, m in BATCHED_SIZES:
-            yield "saddle", torch.tensor(np.stack([saddle(rng, n, m) for _ in range(batch)]), device=dev), m
+            stack = np.stack([saddle(rng, n, m) for _ in range(batch)])
+            yield "saddle", torch.tensor(stack, device=dev), m, None
         for label, mat, neg in path["rl_batched"]:
-            yield label, mat.to(torch.float64), neg
+            yield label, mat.to(torch.float64), neg, _cholesky_of_negated
 
-    for label, a64, neg in cases():
+    for label, a64, neg, library in inputs():
         batch, n = a64.shape[0], a64.shape[-1]
         tag = f"kernel ldlt_factor_rl_batched B={batch} n={n} ({label})"
         a32 = a64.to(torch.float32).contiguous()
@@ -326,28 +421,78 @@ def batched_kernel_phase(card, path):
         unequal = [i for i in range(batch) if not torch.equal(packed[i], singles[i])]
         if unequal:
             fail(f"{tag}: lanes {unequal[:8]} differ from ldlt_factor_rl")
-        err, ms, plain_ms = _factor_check(
-            tag, lk.ldlt_factor_rl_batched, lk.ldlt_factor_rl_batched_ref, a64, neg, rng, card
+        rec = _factor_check(
+            tag, lk.ldlt_factor_rl_batched, lk.ldlt_factor_rl_batched_ref, a64, neg, rng, card,
+            lk.RL_BLOCK, library,
         )
         loop_ms = cuda_ms(lambda: [lk.ldlt_factor_rl(a32[i]) for i in range(batch)])
         print(f"{tag}: bitwise equal to ldlt_factor_rl on every lane, rl_loop_ms={loop_ms:.4f} [{card}]", flush=True)
         if record is None:
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            record = rec
+        if library is not None:
+            cases.append(dict(case=label, shape=list(a64.shape), **rec))
+    record["cases"] = cases
 
-    # a zero pivot in one lane poisons that lane only
-    batch, n, m = BATCHED_SIZES[1]
-    a = np.stack([saddle(rng, n, m) for _ in range(batch)])
-    lane, k = 3, 40
-    a[lane, k, :] = 0.0
-    a[lane, :, k] = 0.0
-    a32 = torch.tensor(a, dtype=torch.float32, device=dev)
-    for label, packed in (("kernel", lk.ldlt_factor_rl_batched(a32)), ("plain", lk.ldlt_factor_rl_batched_ref(a32))):
-        guarded = guard_factor(packed, a32)
-        others = [i for i in range(batch) if i != lane]
-        if not torch.isnan(guarded[lane]).all() or not torch.isfinite(torch.tril(guarded[others])).all():
-            fail(f"rl_batched: zero pivot in lane {lane} did not poison that lane alone ({label})")
-    print(f"kernel ldlt_factor_rl_batched: zero pivot in lane {lane} gives NaN in that lane only", flush=True)
+    # a zero pivot in one lane poisons that lane only, inside a panel and at
+    # either side of a panel edge
+    for (batch, n, m), k in ((BATCHED_SIZES[1], 40), ((8, 194, 130), 127), ((8, 194, 130), 128)):
+        lane = 3
+        a = _zero_pivot(np.stack([saddle(rng, n, m) for _ in range(batch)]), k, lane)
+        a32 = torch.tensor(a, dtype=torch.float32, device=dev)
+        for label, packed in (("kernel", lk.ldlt_factor_rl_batched(a32)), ("plain", lk.ldlt_factor_rl_batched_ref(a32))):
+            guarded = guard_factor(packed, a32)
+            others = [i for i in range(batch) if i != lane]
+            if not torch.isnan(guarded[lane]).all() or not torch.isfinite(torch.tril(guarded[others])).all():
+                fail(f"rl_batched: zero pivot at {k} in lane {lane} did not poison that lane alone ({label})")
+        print(f"kernel ldlt_factor_rl_batched: zero pivot at {k} in lane {lane} gives NaN in that lane only", flush=True)
     return record
+
+
+def split_phase(card):
+    """Device time of each CUDA kernel within one factor at the main path's
+    sizes (644 through B1', 1284 through B3'), from torch.profiler over 5
+    factors after a warm-up, and the panel kernels' time per launch (per
+    panel, in order) within the first of them."""
+    import re
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pygradflow_torch.linalg import ldlt_kernels as lk
+
+    def kernel_name(key):
+        m = re.search(r"(\w+_kernel)(<\d+>)?", key)
+        return m.group(1) + (m.group(2) or "") if m else key
+
+    rng = np.random.default_rng(SEED)
+    runs = 5
+    for key, (n, m) in (("rl", KERNEL_SIZES["rl"][0]), ("ll", KERNEL_SIZES["ll"][0])):
+        name, _ = KERNELS[key]
+        fn = getattr(lk, name)
+        a32 = torch.tensor(saddle(rng, n, m), dtype=torch.float32, device="cuda")
+        fn(a32)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn(a32)
+            torch.cuda.synchronize()
+        parts = [
+            f"{kernel_name(ev.key)} {ev.device_time_total / runs:.1f} us ({ev.count // runs} launches)"
+            for ev in prof.key_averages()
+            if ev.device_time_total > 0
+        ]
+        if not parts:
+            fail(f"split {name}: the profiler saw no device time")
+        print(f"split {name} n={n + m}, per factor: {'; '.join(parts)} [{card}]", flush=True)
+        kernels = sorted(
+            (ev for ev in prof.events() if ev.device_type == DeviceType.CUDA), key=lambda ev: ev.time_range.start
+        )
+        panels = len(kernels) // runs
+        for kind in ("diag_block_kernel", "panel_rows_kernel"):
+            times = [f"{ev.device_time_total:.1f}" for ev in kernels[:panels] if kind in ev.name]
+            print(f"split {name} n={n + m}, {kind} us per panel in order: {' '.join(times)} [{card}]", flush=True)
 
 
 def _solve_once(problem, params, device, x0, batched=False):
@@ -640,6 +785,7 @@ def main():
     records = kernel_phase(card, path)
     two_level_phase(card, path)
     records["rl_batched"] = batched_kernel_phase(card, path)
+    split_phase(card)
     launches = slice_phase(card)
     launches["rl_batched"] = fleet_phase(card)["rl_batched"]
     headline_phase(card)

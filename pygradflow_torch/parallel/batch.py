@@ -254,7 +254,9 @@ class BatchedSolver:
 
     ``problem`` may be a plain :class:`Problem` (batch over initial points
     only) or a :class:`ParametricProblem` (also batch over data).  All
-    tensors of a solve live on ``device``.
+    tensors of a solve live on ``device``: without one, the current CUDA
+    device, and the constructor raises ``RuntimeError`` when there is no
+    card (CPU use passes ``device="cpu"``).
     """
 
     def __init__(

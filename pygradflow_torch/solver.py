@@ -204,7 +204,16 @@ class SolveLoop:
 
 
 def _resolve_device(device) -> torch.device:
-    device = torch.device("cpu" if device is None else device)
+    """The device of a solve: ``None`` means the current CUDA device, and
+    raises when there is none; the CPU only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pygradflow_torch runs on the card by default; "
+                'pass device="cpu" to solve on the CPU'
+            )
+        device = "cuda"
+    device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
@@ -214,7 +223,10 @@ class Solver:
     """User-facing solver (reference ``pygradflow/solver.py:26-431``).
 
     ``device`` is chosen once, here; every tensor of a solve lives there.
-    Initial points may be numpy arrays or tensors on that device.
+    Without one the solve runs on the current CUDA device, and the
+    constructor raises ``RuntimeError`` when there is no card: CPU use
+    passes ``device="cpu"``.  Initial points may be numpy arrays or tensors
+    on that device.
     """
 
     def __init__(self, problem: Problem, params: Params = None, device=None) -> None:

@@ -60,11 +60,11 @@ def test_batched_rosenbrock_matches_jax():
     x0s = np.array([[0.0, 0.0], [0.5, -0.3], [-1.2, 1.0], [2.0, 2.0]])
     jp, tp = params_pair()
     jr = JBatchedSolver(jprob, jp).solve(x0s)
-    tr = BatchedSolver(tprob, tp).solve(x0s)
+    tr = BatchedSolver(tprob, tp, device="cpu").solve(x0s)
     _check_lanes(tr, jr)
     assert bool(tr.success.all())
     for lane, x0 in enumerate(x0s):
-        _check_single(tr, lane, pygradflow_torch.Solver(tprob, tp).solve(tensor(x0)))
+        _check_single(tr, lane, pygradflow_torch.Solver(tprob, tp, device="cpu").solve(tensor(x0)))
 
 
 def test_batched_constrained_matches_jax():
@@ -75,10 +75,10 @@ def test_batched_constrained_matches_jax():
     y0s = np.zeros((3, 2))
     jp, tp = params_pair()
     jr = JBatchedSolver(jprob, jp).solve(x0s, y0s)
-    tr = BatchedSolver(tprob, tp).solve(x0s, y0s)
+    tr = BatchedSolver(tprob, tp, device="cpu").solve(x0s, y0s)
     _check_lanes(tr, jr)
     for lane in range(3):
-        single = pygradflow_torch.Solver(tprob, tp).solve(tensor(x0s[lane]), tensor(y0s[lane]))
+        single = pygradflow_torch.Solver(tprob, tp, device="cpu").solve(tensor(x0s[lane]), tensor(y0s[lane]))
         _check_single(tr, lane, single)
 
 
@@ -100,11 +100,11 @@ def test_parametric_batch_matches_jax(compact):
     kwargs = dict(compact=True, harvest_chunk=4, min_tier=2) if compact else dict(compact=False)
     jp, tp = params_pair()
     jr = JBatchedSolver(JParamRosenbrock(), jp, **kwargs).solve(x0s, data=(jnp.asarray(a), jnp.asarray(b)))
-    tr = BatchedSolver(ParamRosenbrock(), tp, **kwargs).solve(x0s, data=(a, b))
+    tr = BatchedSolver(ParamRosenbrock(), tp, device="cpu", **kwargs).solve(x0s, data=(a, b))
     _check_lanes(tr, jr)
     np.testing.assert_allclose(numpy(tr.x), np.stack([a, a**2], axis=1), atol=1e-5)
     for lane in (0, 7):
-        single = pygradflow_torch.Solver(Rosenbrock(a[lane], b[lane]), tp).solve(tensor(x0s[lane]))
+        single = pygradflow_torch.Solver(Rosenbrock(a[lane], b[lane]), tp, device="cpu").solve(tensor(x0s[lane]))
         _check_single(tr, lane, single)
 
 
@@ -114,8 +114,8 @@ def test_compacting_matches_plain_and_jax():
     jprob, tprob = _problems("Rosenbrock")
     x0s = np.random.default_rng(3).uniform(-2.0, 2.0, size=(12, 2))
     jp, tp = params_pair()
-    plain = BatchedSolver(tprob, tp, compact=False).solve(x0s)
-    compacted = BatchedSolver(tprob, tp, compact=True, harvest_chunk=4, min_tier=2).solve(x0s)
+    plain = BatchedSolver(tprob, tp, compact=False, device="cpu").solve(x0s)
+    compacted = BatchedSolver(tprob, tp, compact=True, harvest_chunk=4, min_tier=2, device="cpu").solve(x0s)
     tree_map(lambda ours, ref: torch.testing.assert_close(ours, ref, rtol=0, atol=0), compacted, plain)
     assert len(set(numpy(plain.iterations).tolist())) > 4  # several harvests
     jr = JBatchedSolver(jprob, jp, compact=True, harvest_chunk=4, min_tier=2).solve(x0s)
@@ -135,21 +135,21 @@ def test_pendulum_fleet_matches_jax():
     jp, tp = params_pair(**ANCHOR)
     jr = JBatchedSolver(JPendulum(N=8), jp).solve(x0s)
     before = dict(lk.LAUNCHES)
-    tr = BatchedSolver(TPendulum(N=8), tp).solve(x0s)
+    tr = BatchedSolver(TPendulum(N=8), tp, device="cpu").solve(x0s)
     assert lk.LAUNCHES == before  # CPU tensors take the plain versions
     _check_lanes(tr, jr)
     assert [(int(i), int(a)) for i, a in zip(tr.iterations, tr.accepted_steps)] == [
         (15, 10), (17, 11), (17, 11), (15, 10)
     ]
     for lane in range(4):
-        single = pygradflow_torch.Solver(TPendulum(N=8), tp).solve(tensor(x0s[lane]))
+        single = pygradflow_torch.Solver(TPendulum(N=8), tp, device="cpu").solve(tensor(x0s[lane]))
         _check_single(tr, lane, single)
 
 
 def test_batched_iteration_limit():
     _, tprob = _problems("Rosenbrock")
     _, tp = params_pair(iteration_limit=3)
-    res = BatchedSolver(tprob, tp).solve(np.zeros((2, 2)))
+    res = BatchedSolver(tprob, tp, device="cpu").solve(np.zeros((2, 2)))
     assert [pygradflow_torch.SolverStatus(int(s)).name for s in res.status] == ["IterationLimit"] * 2
     assert numpy(res.iterations).tolist() == [3, 3]
 
@@ -158,4 +158,4 @@ def test_parametric_batch_needs_data():
     from .torch_parity import ParamRosenbrock
 
     with pytest.raises(ValueError, match="needs batched data"):
-        BatchedSolver(ParamRosenbrock()).solve(np.zeros((2, 2)))
+        BatchedSolver(ParamRosenbrock(), device="cpu").solve(np.zeros((2, 2)))

@@ -219,7 +219,7 @@ def test_import_leaves_jax_out():
 def test_unported_configurations_raise(kwargs, item):
     _, tp = params_pair(**kwargs)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        pygradflow_torch.Solver(TPendulum(N=2), tp)
+        pygradflow_torch.Solver(TPendulum(N=2), tp, device="cpu")
 
 
 def test_problem_products_match(state):

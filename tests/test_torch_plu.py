@@ -110,7 +110,7 @@ def test_solver_at_default_params_matches_jax(name, counts):
     jprob, tprob, x0 = _anchor(name)
     jp, tp = params_pair()
     jr = pygradflow_tpu.Solver(jprob, jp).solve(x0)
-    tr = pygradflow_torch.Solver(tprob, tp).solve(tensor(x0))
+    tr = pygradflow_torch.Solver(tprob, tp, device="cpu").solve(tensor(x0))
     assert jr.status == pygradflow_tpu.SolverStatus.Optimal
     assert tr.status.name == jr.status.name
     assert (jr.iterations, jr.num_accepted_steps) == counts

@@ -212,7 +212,7 @@ def solve_both(N, **kwargs):
     jp, tp = params_pair(**SCHUR, **kwargs)
     x0 = JInterleaved(N=N).x0_trajectory()
     jr = pygradflow_tpu.Solver(JInterleaved(N=N), jp).solve(x0)
-    tr = pygradflow_torch.Solver(TInterleaved(N=N), tp).solve(tensor(x0))
+    tr = pygradflow_torch.Solver(TInterleaved(N=N), tp, device="cpu").solve(tensor(x0))
     return jr, tr
 
 
@@ -249,6 +249,6 @@ def test_pallas_dense_dual_launches_nothing_on_cpu():
     """The mixed dense dual path on CPU tensors reaches the plain B1 only."""
     before = dict(lk.LAUNCHES)
     _, tp = params_pair(**SCHUR, linear_solver_type="PallasLDLT")
-    res = pygradflow_torch.Solver(TInterleaved(N=4), tp).solve(tensor(TInterleaved(N=4).x0_trajectory()))
+    res = pygradflow_torch.Solver(TInterleaved(N=4), tp, device="cpu").solve(tensor(TInterleaved(N=4).x0_trajectory()))
     assert res.status == pygradflow_torch.SolverStatus.Optimal
     assert lk.LAUNCHES == before

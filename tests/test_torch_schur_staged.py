@@ -106,12 +106,12 @@ def test_staged_fleet_matches_jax_and_single(kwargs):
     jp, tp = params_pair(**STAGED, **kwargs)
     jr = JBatchedSolver(JInterleaved(N=12), jp).solve(x0s)
     before = dict(lk.LAUNCHES)
-    tr = BatchedSolver(TInterleaved(N=12), tp).solve(x0s)
+    tr = BatchedSolver(TInterleaved(N=12), tp, device="cpu").solve(x0s)
     assert lk.LAUNCHES == before
     _check_lanes(tr, jr)
     assert numpy(tr.iterations).tolist() == [17] * 4
     for lane in range(4):
-        single = pygradflow_torch.Solver(TInterleaved(N=12), tp).solve(tensor(x0s[lane]))
+        single = pygradflow_torch.Solver(TInterleaved(N=12), tp, device="cpu").solve(tensor(x0s[lane]))
         _check_single(tr, lane, single)
 
 
@@ -120,7 +120,7 @@ def test_matrix_free_requires_schur():
     with pytest.raises(ValueError, match="matrix_free requires"):
         pygradflow_tpu.Solver(JInterleaved(N=8), jp)
     with pytest.raises(ValueError, match="matrix_free requires"):
-        pygradflow_torch.Solver(TInterleaved(N=8), tp)
+        pygradflow_torch.Solver(TInterleaved(N=8), tp, device="cpu")
 
 
 def test_matrix_free_rejects_globalized():
@@ -128,7 +128,7 @@ def test_matrix_free_rejects_globalized():
     with pytest.raises(ValueError, match="Globalized"):
         pygradflow_tpu.Solver(JInterleaved(N=8), jp)
     with pytest.raises(ValueError, match="Globalized"):
-        pygradflow_torch.Solver(TInterleaved(N=8), tp)
+        pygradflow_torch.Solver(TInterleaved(N=8), tp, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -145,4 +145,4 @@ def test_schur_configuration_errors(kwargs, match):
     they check the user's configuration."""
     _, tp = params_pair(**dict(STAGED, **kwargs))
     with pytest.raises(ValueError, match=match):
-        pygradflow_torch.Solver(TInterleaved(N=8), tp)
+        pygradflow_torch.Solver(TInterleaved(N=8), tp, device="cpu")

@@ -25,7 +25,7 @@ def _solve_both(N, x0=None, **kwargs):
     jp, tp = params_pair(**kwargs)
     jprob, tprob = JPendulum(N=N), TPendulum(N=N)
     jr = pygradflow_tpu.Solver(jprob, jp).solve(x0)
-    tr = pygradflow_torch.Solver(tprob, tp).solve(None if x0 is None else tensor(x0))
+    tr = pygradflow_torch.Solver(tprob, tp, device="cpu").solve(None if x0 is None else tensor(x0))
     return jr, tr
 
 
@@ -72,7 +72,7 @@ def test_nan_initial_point_probe():
     with pytest.raises(Exception, match="Failed to evaluate initial iterate"):
         pygradflow_tpu.Solver(JPendulum(N=8), jp).solve(x0)
     with pytest.raises(Exception, match="Failed to evaluate initial iterate"):
-        pygradflow_torch.Solver(TPendulum(N=8), tp).solve(tensor(x0))
+        pygradflow_torch.Solver(TPendulum(N=8), tp, device="cpu").solve(tensor(x0))
 
 
 def test_lambda_limit_probe():
@@ -83,7 +83,7 @@ def test_lambda_limit_probe():
     with pytest.raises(Exception, match=r"exceeded maximum 0.001 \(incorrect derivatives\?\)"):
         pygradflow_tpu.Solver(JPendulum(N=4), jp).solve(x0)
     with pytest.raises(Exception, match=r"exceeded maximum 0.001 \(incorrect derivatives\?\)"):
-        pygradflow_torch.Solver(TPendulum(N=4), tp).solve(tensor(x0))
+        pygradflow_torch.Solver(TPendulum(N=4), tp, device="cpu").solve(tensor(x0))
 
 
 def test_initial_point_on_another_device_is_rejected():
@@ -92,6 +92,36 @@ def test_initial_point_on_another_device_is_rejected():
     x0 = torch.zeros(TPendulum(N=2).num_vars, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="initial point on meta"):
         solver.solve(x0)
+
+
+def _entry_point(name):
+    from pygradflow_torch.parallel import BatchedSolver
+
+    return {"Solver": pygradflow_torch.Solver, "BatchedSolver": BatchedSolver}[name]
+
+
+@pytest.mark.parametrize("name", ["Solver", "BatchedSolver"])
+def test_entry_point_defaults_to_the_card(name):
+    """Without ``device`` the solve runs on the current CUDA device; with no
+    card the constructor raises and names the way to the CPU."""
+    make = _entry_point(name)
+    tp = params_pair(**ANCHOR)[1]
+    if torch.cuda.is_available():
+        assert make(TPendulum(N=2), tp).device == torch.device("cuda", torch.cuda.current_device())
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make(TPendulum(N=2), tp)
+    assert make(TPendulum(N=2), tp, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["Solver", "BatchedSolver"])
+def test_entry_point_without_a_card_raises(name, monkeypatch):
+    """No fallback to the CPU, whatever machine the test runs on."""
+    make = _entry_point(name)
+    tp = params_pair(**ANCHOR)[1]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(TPendulum(N=2), tp)
 
 
 def test_hs71_constrained_matches_jax():
@@ -104,7 +134,7 @@ def test_hs71_constrained_matches_jax():
     x0 = np.array([1.0, 5.0, 5.0, 1.0])
     jp, tp = params_pair(**ANCHOR)
     jr = pygradflow_tpu.Solver(JHS71Constrained(), jp).solve(x0)
-    tr = pygradflow_torch.Solver(HS71Constrained(), tp).solve(tensor(x0))
+    tr = pygradflow_torch.Solver(HS71Constrained(), tp, device="cpu").solve(tensor(x0))
     assert jr.status == pygradflow_tpu.SolverStatus.Optimal
     assert (tr.status.name, tr.iterations, tr.num_accepted_steps) == (
         jr.status.name, jr.iterations, jr.num_accepted_steps,
@@ -122,7 +152,7 @@ def test_tame_matches_jax():
 
     jp, tp = params_pair(**ANCHOR)
     jr = pygradflow_tpu.Solver(JTame(), jp).solve(np.zeros(2))
-    tr = pygradflow_torch.Solver(Tame(), tp).solve(tensor(np.zeros(2)))
+    tr = pygradflow_torch.Solver(Tame(), tp, device="cpu").solve(tensor(np.zeros(2)))
     assert jr.status == pygradflow_tpu.SolverStatus.Optimal
     assert (tr.status.name, tr.iterations, tr.num_accepted_steps) == (
         jr.status.name, jr.iterations, jr.num_accepted_steps,
@@ -138,7 +168,7 @@ def test_computed_step_callback_fires_each_iteration():
 
     _, tp = params_pair(**ANCHOR)
     problem = TPendulum(N=8)
-    solver = pygradflow_torch.Solver(problem, tp)
+    solver = pygradflow_torch.Solver(problem, tp, device="cpu")
     seen = []
     handle = solver.callbacks.register(
         CallbackType.ComputedStep, lambda prev, nxt, accept: seen.append(accept)
