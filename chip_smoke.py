@@ -7,17 +7,18 @@ Phases, one line each (any failed check raises and the exit code is not 0):
 
 1. device: the card's name and power limit, from nvidia-smi;
 2. build: the hand-written kernels of ``pygradflow_torch/csrc`` with nvcc,
-   and what ``-Xptxas -v`` says of the panel-factor kernels (registers; a
-   spill fails the run);
+   and what ``-Xptxas -v`` says of the panel-factor and update kernels
+   (registers; a spill fails the run);
 3. kernels: each kernel against its plain PyTorch version on the card, on
    saddle matrices made with numpy from a seed and on the matrices phase 7
    gives the kernels (built by the port's Schur step at the interleaved
    pendulum's start point: the dense dual S at N = 256, the BCR root at
    N = 1024, both diagonal blocks of the two-level factor at N = 1024, the
-   fleet's BCR roots at N = 100): the lower triangle of the packed factor
-   to rtol = atol = 2e-3, the first panel's NB columns bit for bit (the
-   whole factor on a matrix that fits one panel), the inertia exactly, the
-   f64 refined solve to |Ax - b|_inf <= 1e-9, NaN for a zero pivot inside
+   fleet's BCR roots at N = 100), and the dense dual S at N = 768 (1538
+   rows, B3'): the same bits from two calls, the lower triangle of the
+   packed factor to rtol = atol = 2e-3, the first panel's NB columns bit
+   for bit (the whole factor on a matrix that fits one panel), the inertia
+   exactly, the f64 refined solve to |Ax - b|_inf <= 1e-9, NaN for a zero pivot inside
    a panel and at either side of a panel edge (k = NB - 1, NB), and the
    median of CUDA-event times over 10 runs after a warm-up, beside the
    bound (n^3 / 3 FLOPs at the f32 peak or the bytes at the memory rate)
@@ -27,9 +28,9 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    plain version.  The batched kernel also equals the right-looking kernel
    on every instance bit for bit, leaves NaN only in the lane of a zero
    pivot, and is timed beside B sequential calls of the right-looking
-   kernel.  Last, torch.profiler splits one factor at n = 644 (B1') and
-   1284 (B3') into the device time of each CUDA kernel, and of each panel's
-   diagonal-block and rows-below launches;
+   kernel.  Last, torch.profiler splits one factor at n = 644 (B1'), 1284
+   (B3') and (128, 324) (B2') into the device time of each CUDA kernel,
+   and of each panel's diagonal-block, rows-below and update launches;
 4. slice: the pendulum swing-up at N = 128 (KKT 644, right-looking kernel)
    and N = 256 (KKT 1284, left-looking kernel) solved by ``Solver`` on the
    card with the mixed-precision LDL^T tier, held against the port's own CPU
@@ -137,6 +138,34 @@ def bound(shape):
     return (flop_ms, "operations") if flop_ms >= byte_ms else (byte_ms, "bytes")
 
 
+def update_bound_us(key, n, batch=1):
+    """Least time (us) the card could take for one factor's update
+    products: per launch the larger of its FLOPs at the f32 peak and its
+    bytes (inputs read once, outputs written once) at the memory rate,
+    summed over the launches.  "ll": P -= L_{:,<b} (L_{b,<b} D)^T on the
+    n_pad - b rows of each panel b; "rl", "rl_batched": the trailing
+    update on the 128-wide lower blocks it computes."""
+    total = 0.0
+    if key == "ll":
+        nb = 64
+        n_pad = -(-n // nb) * nb
+        for b in range(nb, n_pad, nb):
+            rows = n_pad - b
+            flops = 2 * rows * nb * b
+            nbytes = 4 * (rows * b + b + 2 * rows * nb)  # L rows, d, P in and out
+            total += max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    else:
+        nb = 128
+        n_pad = -(-n // nb) * nb
+        for base in range(0, n_pad - nb, nb):
+            m = (n_pad - base) // nb - 1
+            blocks = m * (m + 1) // 2
+            flops = batch * blocks * 2 * nb**3
+            nbytes = batch * 4 * (m * nb * nb + nb + 2 * blocks * nb * nb)  # L panel, d, tiles in and out
+            total += max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    return 1e6 * total
+
+
 def device_phase():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -165,23 +194,35 @@ def ptxas_report(log):
     return report
 
 
+# every instance of the panel-factor and update kernels, as ptxas names them
+BUILT_KERNELS = {
+    "diag_block_kernel<64>", "diag_block_kernel<128>", "panel_rows_kernel<64>", "panel_rows_kernel<128>",
+    "trailing_update_kernel<128, 64>", "trailing_update_kernel<128, 32>", "left_update_kernel<64>",
+}
+
+
 def build_phase():
-    """Builds the kernels and prints what ptxas says of the panel-factor
-    kernels; a spill there fails the run."""
+    """Builds the kernels and prints what ptxas says of the panel-factor and
+    update kernels; a spill there fails the run."""
+    import re
+
     from pygradflow_torch import build
 
     build.load_library()
     print(f"build: {build.BUILD_SECONDS:.1f} s ({build.library_path().parent.name})", flush=True)
     report = ptxas_report((build.library_path().parent / "build.log").read_text())
-    panel = {k: v for k, v in report.items() if "diag_block_kernel" in k or "panel_rows_kernel" in k}
-    if len(panel) != 4:
-        fail(f"build: expected the diagonal-block and rows kernels at NB=64 and 128 in the ptxas report, got {sorted(panel)}")
-    for mangled, (regs, spill) in sorted(panel.items()):
-        name = "diag_block_kernel" if "diag_block_kernel" in mangled else "panel_rows_kernel"
-        nb = 128 if "ILi128E" in mangled else 64
-        print(f"build: {name}<{nb}> {regs} registers, {spill} spill bytes", flush=True)
+    found = {}
+    for mangled, regs_spill in report.items():
+        m = re.search(r"(diag_block|panel_rows|trailing_update|left_update)_kernel(\w*)", mangled)
+        if m:
+            args = ", ".join(re.findall(r"Li(\d+)E", m.group(2)))
+            found[f"{m.group(1)}_kernel<{args}>"] = regs_spill
+    if set(found) != BUILT_KERNELS:
+        fail(f"build: expected {sorted(BUILT_KERNELS)} in the ptxas report, got {sorted(found)}")
+    for name, (regs, spill) in sorted(found.items()):
+        print(f"build: {name} {regs} registers, {spill} spill bytes", flush=True)
         if spill:
-            fail(f"build: {name}<{nb}> spills {spill} bytes")
+            fail(f"build: {name} spills {spill} bytes")
 
 
 def path_matrices(device):
@@ -191,7 +232,8 @@ def path_matrices(device):
     tier that keeps each matrix instead of factoring it.  Every one is
     negative definite.  Returns ``{"rl": [(label, matrix, negative
     eigenvalues)], "rl_batched": [...], "two_level": S}``; the two-level
-    diagonal blocks are those of B1's plain version."""
+    diagonal blocks are those of B1's plain version; "ll" holds the dense
+    dual S at N = 768 (1538 rows), which routes to B3'."""
     import numpy as np
     import torch
     from torch.func import vmap
@@ -245,6 +287,7 @@ def path_matrices(device):
             ("two-level diagonal block 1, N=1024", blocks[0], 1025),
             ("two-level diagonal block 2, N=1024", blocks[1], 1025),
         ],
+        "ll": [("dense dual S, N=768", dual(768), 1538)],
         "rl_batched": [("BCR roots of the fleet, N=100", dual(100, 2, FLEET_B), 256)],
         "two_level": s1024,
     }
@@ -252,11 +295,12 @@ def path_matrices(device):
 
 def _factor_check(label, kernel, plain, a64, neg_expected, rng, card, block=None, library=None):
     """``kernel`` against ``plain`` on the f32 cast of ``a64`` (a matrix or a
-    stack): the lower triangles to TOL, the first ``block`` columns bit for
-    bit (the whole factor when n <= block), the inertia, the refined
-    residual; times the kernel, the plain version and ``library`` (one
-    PyTorch call of the same factor, up to scale, or None); prints one line
-    and returns a record for the summary."""
+    stack): the same bits from a second call, the lower triangles to TOL,
+    the first ``block`` columns bit for bit (the whole factor when n <=
+    block), the inertia, the refined residual; times the kernel, the plain
+    version and ``library`` (one PyTorch call of the same factor, up to
+    scale, or None); prints one line and returns a record for the
+    summary."""
     import torch
 
     from pygradflow_torch.linalg import ldlt_kernels as lk
@@ -265,8 +309,11 @@ def _factor_check(label, kernel, plain, a64, neg_expected, rng, card, block=None
 
     a32 = a64.to(torch.float32).contiguous()
     packed = kernel(a32)
+    again = kernel(a32)
     ref = plain(a32)
     torch.cuda.synchronize()
+    if not torch.equal(packed, again):
+        fail(f"{label}: two calls on the same input gave different bits")
     lo, lo_ref = torch.tril(packed), torch.tril(ref)
     err = (lo - lo_ref).abs().max().item()
     if not torch.allclose(lo, lo_ref, rtol=TOL, atol=TOL):
@@ -290,7 +337,7 @@ def _factor_check(label, kernel, plain, a64, neg_expected, rng, card, block=None
     bits = "" if block is None else f" bitwise=first {min(n, block)} of {n} columns"
     lib = "" if library_ms is None else f" cholesky_ms={library_ms:.4f}"
     print(
-        f"{label}: max_abs_err={err:.3e}{bits} inertia={neg_expected} refined_res={res:.3e} "
+        f"{label}: max_abs_err={err:.3e}{bits} deterministic inertia={neg_expected} refined_res={res:.3e} "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f}{lib} bound_ms={bound_ms:.6f} ({bound_by}) [{card}]",
         flush=True,
     )
@@ -450,9 +497,10 @@ def batched_kernel_phase(card, path):
 
 def split_phase(card):
     """Device time of each CUDA kernel within one factor at the main path's
-    sizes (644 through B1', 1284 through B3'), from torch.profiler over 5
-    factors after a warm-up, and the panel kernels' time per launch (per
-    panel, in order) within the first of them."""
+    sizes (644 through B1', 1284 through B3', the fleet's (128, 324)
+    through B2'), from torch.profiler over 5 factors after a warm-up, and
+    each panel and update kernel's time per launch (per panel, in order)
+    within the first of them."""
     import re
 
     import numpy as np
@@ -463,15 +511,22 @@ def split_phase(card):
     from pygradflow_torch.linalg import ldlt_kernels as lk
 
     def kernel_name(key):
-        m = re.search(r"(\w+_kernel)(<\d+>)?", key)
+        m = re.search(r"(\w+_kernel)(<[\d, ]+>)?", key)
         return m.group(1) + (m.group(2) or "") if m else key
 
     rng = np.random.default_rng(SEED)
+    batch, bn, bm = BATCHED_SIZES[0]
+    cases = (
+        ("rl", saddle(rng, *KERNEL_SIZES["rl"][0])),
+        ("ll", saddle(rng, *KERNEL_SIZES["ll"][0])),
+        ("rl_batched", np.stack([saddle(rng, bn, bm) for _ in range(batch)])),
+    )
     runs = 5
-    for key, (n, m) in (("rl", KERNEL_SIZES["rl"][0]), ("ll", KERNEL_SIZES["ll"][0])):
+    for key, a in cases:
         name, _ = KERNELS[key]
         fn = getattr(lk, name)
-        a32 = torch.tensor(saddle(rng, n, m), dtype=torch.float32, device="cuda")
+        a32 = torch.tensor(a, dtype=torch.float32, device="cuda")
+        shape = "x".join(map(str, a.shape[:-1]))
         fn(a32)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -485,14 +540,21 @@ def split_phase(card):
         ]
         if not parts:
             fail(f"split {name}: the profiler saw no device time")
-        print(f"split {name} n={n + m}, per factor: {'; '.join(parts)} [{card}]", flush=True)
+        lead, n = a.shape[:-2], a.shape[-1]
+        bound_us = update_bound_us(key, n, lead[0] if lead else 1)
+        print(f"split {name} {shape}, per factor: {'; '.join(parts)}; update bound_us={bound_us:.2f} [{card}]", flush=True)
         kernels = sorted(
             (ev for ev in prof.events() if ev.device_type == DeviceType.CUDA), key=lambda ev: ev.time_range.start
         )
-        panels = len(kernels) // runs
-        for kind in ("diag_block_kernel", "panel_rows_kernel"):
-            times = [f"{ev.device_time_total:.1f}" for ev in kernels[:panels] if kind in ev.name]
-            print(f"split {name} n={n + m}, {kind} us per panel in order: {' '.join(times)} [{card}]", flush=True)
+        per_factor = len(kernels) // runs
+        for kind in ("diag_block_kernel", "panel_rows_kernel", "trailing_update_kernel", "left_update_kernel"):
+            times = [
+                f"{ev.device_time_total:.1f}{kernel_name(ev.name)[len(kind):]}"
+                for ev in kernels[:per_factor]
+                if kind in ev.name
+            ]
+            if times:
+                print(f"split {name} {shape}, {kind} us per panel in order: {' '.join(times)} [{card}]", flush=True)
 
 
 def _solve_once(problem, params, device, x0, batched=False):

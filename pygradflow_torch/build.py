@@ -77,13 +77,20 @@ def load_library() -> ctypes.CDLL:
     if _LIB is None:
         t0 = time.perf_counter()
         lib = ctypes.CDLL(str(build()))
-        for name in ("pgf_ldlt_factor_rl", "pgf_ldlt_factor_ll"):
-            fn = getattr(lib, name)
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
+        lib.pgf_ldlt_factor_rl.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.pgf_ldlt_factor_rl.restype = ctypes.c_int
+        lib.pgf_ldlt_factor_ll.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.pgf_ldlt_factor_ll.restype = ctypes.c_int
+        lib.pgf_ldlt_factor_ll_workspace.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+        ]
+        lib.pgf_ldlt_factor_ll_workspace.restype = ctypes.c_int
         lib.pgf_ldlt_factor_rl_batched.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p,

@@ -16,6 +16,9 @@ diagonal = D; a zero pivot becomes NaN.  A CUDA tensor launches the kernel
 runs the same algorithm with the same panel width and is what the kernel is
 held against on the card.
 
+The left-looking kernel splits its update products over K and sums the
+partial tiles in a workspace that its wrapper allocates per call.
+
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
 main path went through the kernels.
 """
@@ -115,6 +118,17 @@ def _check(mat, name, ndim):
         raise ValueError(f"{name}: expected a contiguous matrix")
 
 
+def _workspace(lib, n_pad, device):
+    """The left-looking kernel's split-K workspace (partial tiles and their
+    counters), as many bytes as the library asks for at ``n_pad``."""
+    size = ctypes.c_longlong()
+    err = lib.pgf_ldlt_factor_ll_workspace(n_pad, ctypes.byref(size))
+    if err != 0:
+        raise RuntimeError(f"pgf_ldlt_factor_ll_workspace failed with CUDA error {err}")
+    work = torch.empty(size.value, dtype=torch.uint8, device=device)
+    return work, (ctypes.c_void_p(work.data_ptr()), ctypes.c_longlong(size.value))
+
+
 def _launch(key, fn_name, mat, block):
     from ..build import load_library
 
@@ -125,9 +139,11 @@ def _launch(key, fn_name, mat, block):
     out = torch.empty(lead + (n_pad, n_pad), dtype=torch.float32, device=mat.device)
     stream = torch.cuda.current_stream(mat.device).cuda_stream
     with torch.cuda.device(mat.device):
+        work, work_args = _workspace(lib, n_pad, mat.device) if key == "ll" else (None, ())
         err = getattr(lib, fn_name)(
             ctypes.c_void_p(mat.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
+            *work_args,
             *lead,
             n,
             n_pad,

@@ -162,3 +162,57 @@ def test_pendulum_on_cuda_matches_cpu(cuda):
         ref.status, ref.iterations, ref.num_accepted_steps,
     )
     np.testing.assert_allclose(res.x.cpu().numpy(), ref.x.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "batch,n,m",
+    [(2, 120, 80), (2, 386, 258), (2, 615, 410), (128, 194, 130)],
+    ids=["n200", "n644", "n1025", "fleet128x324"],
+)
+def test_trailing_update_over_lower_tiles(cuda, batch, n, m):
+    """The trailing update of B1' and B2' computes only the tiles at or
+    below each block row's diagonal block (32- or 64-wide, as the grid
+    asks): ragged block counts, both tile shapes and a stack of 128.  tril
+    stays within the f32 bound of the plain version, and B2' equals B1' on
+    every lane bit for bit, since the tile shape does not change what an
+    element sums."""
+    rng = np.random.default_rng(7)
+    a32 = torch.tensor(
+        np.stack([saddle(rng, n, m) for _ in range(batch)]), dtype=torch.float32, device=cuda
+    )
+    stacked = lk.ldlt_factor_rl_batched(a32)
+    for i in range(batch):
+        single = lk.ldlt_factor_rl(a32[i].contiguous())
+        assert torch.equal(stacked[i], single)
+    ref = lk.ldlt_factor_rl_batched_ref(a32)
+    torch.testing.assert_close(torch.tril(stacked), torch.tril(ref), rtol=2e-3, atol=2e-3)
+    assert ldlt_num_neg_eigvals(stacked).tolist() == [m] * batch
+
+
+@pytest.mark.parametrize("n,m", [(770, 514), (1229, 819)], ids=["n1284", "n2048"])
+def test_left_update_split_k_is_deterministic(cuda, n, m):
+    """B3' with the split-K left update (K up to 1984): tril within the f32
+    bound of the plain version, and two calls give the same bits (the
+    partial tiles are summed in chunk order, never in order of arrival)."""
+    a32 = torch.tensor(saddle(np.random.default_rng(7), n, m), dtype=torch.float32, device=cuda)
+    before = lk.LAUNCHES["ll"]
+    packed, again = lk.ldlt_factor_ll(a32), lk.ldlt_factor_ll(a32)
+    assert lk.LAUNCHES["ll"] == before + 2
+    assert torch.equal(packed, again)
+    ref = lk.ldlt_factor_ll_ref(a32)
+    torch.testing.assert_close(torch.tril(packed), torch.tril(ref), rtol=2e-3, atol=2e-3)
+    assert int(ldlt_num_neg_eigvals(packed)) == m
+
+
+@pytest.mark.parametrize("k", [639, 640, 1280])
+def test_left_update_carries_a_zero_pivot(cuda, k):
+    """A zero pivot in a late panel of B3' at n = 1284, where the left
+    update splits K over many chunks (at k = 1280, the last panel, 80 of
+    them), still poisons the factor from k on and leaves the leading k x k
+    factor finite."""
+    a = saddle(np.random.default_rng(7), 770, 514)
+    a[k, :] = 0.0
+    a[:, k] = 0.0
+    packed = lk.ldlt_factor_ll(torch.tensor(a, dtype=torch.float32, device=cuda))
+    assert torch.isnan(torch.diagonal(packed)[k:]).any()
+    assert torch.isfinite(torch.tril(packed[:k, :k])).all()

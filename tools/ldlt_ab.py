@@ -8,7 +8,10 @@ Each ROOT is timed in its own process (each builds its kernels from its
 own sources into its own ``pygradflow_torch/_build``), in the order given.
 For every kernel entry point at the main path's shapes (seeded saddle
 matrices, f32) the script prints the median of 20 CUDA-event times after a
-warm-up, one JSON object per root, with the card's name and power limit.
+warm-up and the sha256 of the bytes of ``tril`` of the packed factor, one
+JSON object per root, with the card's name and power limit.  Equal digests
+of two roots mean the same bits; a kernel whose digest differs between two
+runs of one root is not deterministic.
 """
 
 import json
@@ -22,12 +25,13 @@ SHAPES = [
     ("ldlt_factor_rl", (512,)),
     ("ldlt_factor_rl", (1025,)),
     ("ldlt_factor_ll", (1284,)),
+    ("ldlt_factor_ll", (1538,)),
     ("ldlt_factor_rl_batched", (128, 324)),
     ("ldlt_factor_rl_batched", (128, 256)),
 ]
 
 CHILD = r"""
-import json, sys
+import hashlib, json, sys
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
@@ -50,14 +54,16 @@ def ms(fn, runs=20):
     return sorted(times)[runs // 2]
 
 rng = np.random.default_rng(7)
-out = {}
+out, sha = {}, {}
 for name, shape in json.loads(sys.argv[2]):
     *lead, n = shape
     a = np.stack([saddle(rng, n) for _ in range(lead[0])]) if lead else saddle(rng, n)
     a32 = torch.tensor(a, dtype=torch.float32, device="cuda")
     fn = getattr(lk, name)
-    out[f"{name} {tuple(shape)}"] = ms(lambda: fn(a32))
-print(json.dumps(out))
+    key = f"{name} {tuple(shape)}"
+    out[key] = ms(lambda: fn(a32))
+    sha[key] = hashlib.sha256(torch.tril(fn(a32)).cpu().numpy().tobytes()).hexdigest()[:16]
+print(json.dumps({"ms": out, "sha256": sha}))
 """
 
 
@@ -78,7 +84,8 @@ def main(roots):
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)
             return proc.returncode
-        print(json.dumps({"root": root, "card": card, "ms": json.loads(proc.stdout.strip().splitlines()[-1])}), flush=True)
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"root": root, "card": card, **result}), flush=True)
     return 0
 
 
