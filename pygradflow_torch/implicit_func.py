@@ -57,23 +57,36 @@ def project_box(func: StepFunc, p, active_set):
     return torch.where(active_set, torch.clamp(p, func.proj_lb, func.proj_ub), p)
 
 
-def projection_initial(func: StepFunc, it: Iterate, rho, fns=None):
-    """Point whose projection defines the x-residual
-    (``ActiveSetType.Standard``: no tau).  ``fns`` carries the matrix-free
-    J^T product (``iterate._jac_t``)."""
+def projection_initial(func: StepFunc, it: Iterate, rho, tau=None, fns=None):
+    """Point whose projection defines the x-residual (reference
+    ``implicit_func.py:134-147`` / ``:233-246``); ``tau`` is None for
+    ``ActiveSetType.Standard``.  ``fns`` carries the matrix-free J^T product
+    (``iterate._jac_t``)."""
+    x0 = func.orig.x
+    lamb = lanes(func.lamb, 1)
     d = aug_lag_deriv_x(it, rho, fns)
+    if tau is not None:
+        tau = lanes(tau, 1)
+
     if func.scaled:
-        return lanes(func.lamb, 1) * func.orig.x - d
-    return func.orig.x - lanes(func.dt, 1) * d
+        if tau is not None:
+            f_x = lamb * (1.0 - tau * lamb)
+            f_x0 = tau * lamb * lamb
+            f_d = tau * lamb
+            return f_x * it.x + f_x0 * x0 - f_d * d
+        return lamb * x0 - d
+    if tau is not None:
+        return (1.0 - tau * lamb) * it.x + (tau * lamb) * x0 - tau * d
+    return x0 - lanes(func.dt, 1) * d
 
 
-def compute_active_set(func: StepFunc, it: Iterate, rho, fns=None):
-    return active_set_at_point(func, projection_initial(func, it, rho, fns))
+def compute_active_set(func: StepFunc, it: Iterate, rho, tau=None, fns=None):
+    return active_set_at_point(func, projection_initial(func, it, rho, tau, fns))
 
 
 def value_at(func: StepFunc, it: Iterate, rho, active_set=None, fns=None):
     """Residual value ``(rx, ry)``."""
-    p = projection_initial(func, it, rho, fns)
+    p = projection_initial(func, it, rho, fns=fns)
     if active_set is None:
         active_set = active_set_at_point(func, p)
     proj = project_box(func, p, active_set)
@@ -91,3 +104,32 @@ def value_at(func: StepFunc, it: Iterate, rho, active_set=None, fns=None):
 def value_norm(func: StepFunc, it: Iterate, rho, active_set=None, fns=None):
     rx, ry = value_at(func, it, rho, active_set, fns)
     return torch.sqrt(dot(rx, rx) + dot(ry, ry))
+
+
+def deriv(func: StepFunc, jac, hess, active_set):
+    """Dense Newton matrix of the residual, ``P'`` zeroing the active rows:
+    unscaled ``[[I + dt P'H, dt P'J^T], [-dt J, I]]`` (reference
+    ``implicit_func.py:163-188``), scaled ``[[lamb I + P'H, P'J^T], [-J,
+    lamb I]]`` (``:254-283``)."""
+    n = hess.shape[-1]
+    m = jac.shape[-2]
+    inactive = (~active_set)[..., :, None]
+    eye_n = torch.eye(n, dtype=hess.dtype, device=hess.device)
+    eye_m = torch.eye(m, dtype=hess.dtype, device=hess.device).expand(jac.shape[:-2] + (m, m))
+
+    if func.scaled:
+        lamb = lanes(func.lamb, 2)
+        F11 = lamb * eye_n + torch.where(inactive, hess, 0.0)
+        F12 = torch.where(inactive, jac.mT, 0.0)
+        F21 = -jac
+        F22 = lamb * eye_m
+    else:
+        dt = lanes(func.dt, 2)
+        F11 = eye_n + torch.where(inactive, dt * hess, 0.0)
+        F12 = torch.where(inactive, dt * jac.mT, 0.0)
+        F21 = -dt * jac
+        F22 = eye_m
+
+    top = torch.cat([F11, F12], dim=-1)
+    bot = torch.cat([F21, F22], dim=-1)
+    return torch.cat([top, bot], dim=-2)

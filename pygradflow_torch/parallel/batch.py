@@ -9,7 +9,10 @@ decision is a per-lane ``torch.where``.  ``torch.func.vmap`` serves only the
 problem's derivatives (``eval.lane_fns``).  Lanes are independent: a lane's
 trajectory does not depend on the others or on the batch width.
 
-Each iteration reads one value on the host, whether any lane still runs.
+Each iteration reads one value on the host, whether any lane still runs;
+Exact step control and Globalized Newton add one per inner step, whether
+any lane still iterates, where the JAX package's ``lax.while_loop`` decides
+on the device.  A lane that has left such a loop keeps its values.
 A lane whose status is terminal is frozen: it keeps computing in lockstep,
 and its result is discarded.  ``compact`` harvests terminated lanes at
 chunk boundaries and re-packs the running remainder into power-of-four
@@ -118,9 +121,9 @@ class LaneLoop:
         self.params = params
         problem = transform.trans_problem
         self.m = problem.num_cons
+        self.device = device
         self.lb = torch.as_tensor(problem.var_lb, dtype=params.dtype, device=device)
         self.ub = torch.as_tensor(problem.var_ub, dtype=params.dtype, device=device)
-        self.penalty_initial, self.penalty_update = penalty_strategy(params, self.m, lanes=True)
         if params.iteration_limit is not None:
             self.iteration_limit = int(params.iteration_limit)
         else:
@@ -133,6 +136,9 @@ class LaneLoop:
         self.fns = lane_fns(self.transform.fns, data)
         self.cfg = make_control_cfg(self.fns, self.params, self.lb, self.ub)
         self.controller = make_controller(self.cfg, lanes=True)
+        self.penalty_initial, self.penalty_update = penalty_strategy(
+            self.params, self.m, self.fns, self.device, lanes=True
+        )
 
     def init_state(self, x, y) -> LaneState:
         params = self.params
@@ -141,7 +147,7 @@ class LaneLoop:
         def full(value, dtype=params.dtype):
             return torch.full((batch,), value, dtype=dtype, device=x.device)
 
-        rho0, pstate0 = self.penalty_initial()
+        rho0, pstate0 = self.penalty_initial(batch)
         zero = full(0, torch.int64)
         counters = Counters.zero_lanes(batch, x.device).add(**iterate_eval_counts(self.m))
         state = LaneState(
@@ -281,7 +287,7 @@ class BatchedSolver:
         self.orig_problem = problem
         self.params = params
         self.device = _resolve_device(device)
-        self.transform = Transformation(problem, params)
+        self.transform = Transformation(problem, params, self.device)
         self.loop = LaneLoop(self.transform, params, self.device)
         self.parametric = isinstance(problem, ParametricProblem)
         self.compact = compact
@@ -289,7 +295,7 @@ class BatchedSolver:
         self.min_tier = int(min_tier)
 
     def _initial(self, x0, y0, data):
-        """Lane initial points on the device, with slacks appended."""
+        """Lane initial points on the device, scaled, with slacks appended."""
         params = self.params
         x0 = torch.as_tensor(x0, dtype=params.dtype, device=self.device)
         batch = x0.shape[0]
@@ -298,7 +304,7 @@ class BatchedSolver:
         else:
             y0 = torch.as_tensor(y0, dtype=params.dtype, device=self.device)
         args = () if data is None else (data,)
-        return vmap(self.transform.trans_problem.transform_sol)(x0, y0, *args)
+        return vmap(self.transform.transform_sol)(x0, y0, *args)
 
     def _data(self, data):
         if not self.parametric:

@@ -16,7 +16,10 @@ receives none.
 import abc
 
 import numpy as np
+import torch
 from torch.func import grad, jacfwd, jvp, vjp
+
+from .util import PerDevice
 
 
 class Problem(abc.ABC):
@@ -122,4 +125,70 @@ class Problem(abc.ABC):
     def cons_jvp(self, x, v, *args):
         """``J(x) v`` without the Jacobian (forward mode)."""
         return jvp(lambda x_: self.cons(x_, *args), (x,), (v,))[1]
+
+
+class FuncProblem(Problem):
+    """Problem built from plain functions instead of a subclass:
+    ``FuncProblem(lb, ub, obj=f, cons=c, cons_lb=..., cons_ub=...)``, with
+    ``f`` and ``c`` written with torch operations."""
+
+    def __init__(self, var_lb, var_ub, obj, cons=None, **args):
+        self._obj = obj
+        self._cons = cons
+        super().__init__(var_lb, var_ub, **args)
+
+    def obj(self, x, *args):
+        return self._obj(x, *args)
+
+    def cons(self, x, *args):
+        if self._cons is None:
+            raise NotImplementedError()
+        return self._cons(x, *args)
+
+
+class QuadraticProblem(Problem):
+    """Quadratic program ``min 1/2 x^T Q x + c^T x  s.t.  l <= Ax <= u`` with
+    variable bounds.
+
+    ``Q``, ``c`` and ``A`` (numpy arrays or tensors) are kept as float64
+    tensors, and each evaluation reads them on the device of its point, where
+    a copy is made once and kept.  The gradient, Jacobian and Hessian are
+    written out, so no autodiff runs for a QP."""
+
+    def __init__(self, Q, c, A=None, cons_lb=None, cons_ub=None, var_lb=None, var_ub=None):
+        self.Q = torch.as_tensor(Q, dtype=torch.float64)
+        self.c = torch.as_tensor(c, dtype=torch.float64)
+        (n,) = self.c.shape
+        self.A = None if A is None else torch.as_tensor(A, dtype=torch.float64)
+        # _data(x): (Q, c, A) on the device of x
+        self._data = PerDevice(
+            lambda device: tuple(None if t is None else t.to(device) for t in (self.Q, self.c, self.A))
+        ).on
+
+        if var_lb is None:
+            var_lb = np.full((n,), -np.inf)
+        if var_ub is None:
+            var_ub = np.full((n,), np.inf)
+
+        if self.A is None:
+            super().__init__(var_lb, var_ub)
+        else:
+            super().__init__(var_lb, var_ub, cons_lb=cons_lb, cons_ub=cons_ub)
+
+    def obj(self, x, *args):
+        Q, c, _ = self._data(x)
+        return 0.5 * torch.dot(x, Q @ x) + torch.dot(c, x)
+
+    def obj_grad(self, x, *args):
+        Q, c, _ = self._data(x)
+        return Q @ x + c
+
+    def cons(self, x, *args):
+        return self._data(x)[2] @ x
+
+    def cons_jac(self, x, *args):
+        return self._data(x)[2]
+
+    def lag_hess(self, x, y, *args):
+        return self._data(x)[0]
 

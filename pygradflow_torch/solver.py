@@ -86,7 +86,7 @@ class SolveLoop:
 
         self.cfg = make_control_cfg(self.fns, params, self.lb, self.ub)
         self.controller = make_controller(self.cfg)
-        self.penalty_initial, self.penalty_update = penalty_strategy(params, self.m)
+        self.penalty_initial, self.penalty_update = penalty_strategy(params, self.m, self.fns, device)
 
         if params.iteration_limit is not None:
             self.iteration_limit = int(params.iteration_limit)
@@ -237,7 +237,7 @@ class Solver:
         self.device = _resolve_device(device)
         self.callbacks = Callbacks()
 
-        self.transform = Transformation(problem, params)
+        self.transform = Transformation(problem, params, self.device)
         self.problem = self.transform.trans_problem
         self.evaluator = self.transform.fns
 

@@ -1,13 +1,24 @@
 """Step-size control: accept or reject a step and adapt lambda = 1/dt
 (counterpart of ``pygradflow_tpu/step/control.py``).
 
-The DistanceRatio controller (the default) is ported in two forms.  For
-one instance, where the JAX package computes both branches under
-``lax.cond``/``jnp.where`` and masks, this eager port branches in Python on
-the same conditions in the same order, which takes the same decisions.  For
-a lane stack (``*_lanes``) it does what the JAX body does under ``vmap``:
-every lane computes both Newton steps and ``torch.where`` picks each lane's
-branch, so each lane takes the decisions the single-instance form takes.
+The controllers DistanceRatio (the default), ResiduumRatio, Exact and
+Fixed, each in two forms.  For one instance, where the JAX package computes
+both branches under ``lax.cond``/``jnp.where`` and masks, this eager port
+branches in Python on the same conditions in the same order, which takes
+the same decisions.  For a lane stack (``lanes``) it does what the JAX body
+does under ``vmap``: every lane computes every branch and ``torch.where``
+picks each lane's, so each lane takes the decisions of the single form.
+Exact's inner Newton loop stops for one instance when it converges or
+fails (one host read per inner step).  On a lane stack it reads nothing on
+the host: it runs all ``newton_max_it`` steps, where the JAX package's
+``lax.while_loop`` stops once no lane iterates, and a lane that has
+finished keeps its iterate, counters and first candidate.  BoxReduced and
+Optimizing are ROADMAP A10.
+
+The active-set parameter tau (``compute_tau``) follows the reference
+heuristics (``step/newton_control.py:40-88``): none for Standard, a given
+value for Explicit or from ``params.active_set_method``, and the smallest
+or largest ratio at which the gradient flow reaches a bound.
 
 The PI controller on log(theta) follows the reference LogController
 (``pygradflow/controller.py:29-77``): on acceptance
@@ -27,10 +38,11 @@ import math
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from .. import implicit_func as impl
 from ..eval import Counters
-from ..iterate import Iterate, evaluate_iterate, iterate_eval_counts
+from ..iterate import Iterate, aug_lag_deriv_x, evaluate_iterate, iterate_eval_counts
 from ..newton import NewtonCfg, make_newton
 from ..params import ActiveSetType, Params, StepControlType
 from ..util import select
@@ -74,15 +86,47 @@ def make_control_cfg(fns, params: Params, lb, ub) -> ControlCfg:
     )
 
 
+def _tau_vals(cfg: ControlCfg, it: Iterate, rho):
+    """Per variable, the flow time to its bound along the gradient (-1 where
+    the gradient is close to 0)."""
+    x = it.x
+    g = aug_lag_deriv_x(it, rho, cfg.fns)
+    zero_g = torch.isclose(g, torch.zeros_like(g), rtol=1e-5, atol=1e-8)
+    pos_g = (g > 0.0) & ~zero_g
+    neg_g = (g < 0.0) & ~zero_g
+    safe_g = torch.where(zero_g, 1.0, g)
+    tau = torch.full_like(x, -1.0)
+    tau = torch.where(pos_g, (x - cfg.lb) / safe_g, tau)
+    return torch.where(neg_g, (cfg.ub - x) / -safe_g, tau)
+
+
 def compute_tau(cfg: ControlCfg, it: Iterate, lamb, rho):
-    """tau of the active-set projection point: ``None`` for
-    ``ActiveSetType.Standard``, the only type ported so far."""
+    """tau of the active-set projection point (reference
+    ``step/newton_control.py:40-88``): ``None`` for
+    ``ActiveSetType.Standard``; a float, or a tensor with one value per
+    lane.  ``params.active_set_method(iterate, lamb, rho)`` is written for
+    one instance; on a lane stack it is mapped over the lanes
+    (``torch.func.vmap``), as the JAX package's vmap calls it."""
     params = cfg.params
-    if params.active_set_method is not None or params.active_set_type != ActiveSetType.Standard:
-        raise NotImplementedError(
-            "active-set types other than Standard are not yet ported (ROADMAP A5)"
-        )
-    return None
+    ast = params.active_set_type
+    if ast == ActiveSetType.Explicit:
+        if params.active_set_tau is None:
+            raise ValueError("ActiveSetType.Explicit requires params.active_set_tau")
+        return params.active_set_tau
+    method = params.active_set_method
+    if method is not None:
+        if it.x.ndim == 1:
+            return method(it, lamb, rho)
+        return vmap(lambda *a: torch.as_tensor(method(*a), dtype=it.x.dtype))(it, lamb, rho)
+    if ast == ActiveSetType.Standard:
+        return None
+
+    tau_vals = _tau_vals(cfg, it, rho)
+    if ast == ActiveSetType.SmallestActiveSet:
+        pos = tau_vals > 0
+        min_tau = torch.amin(torch.where(pos, tau_vals, torch.inf), dim=-1)
+        return torch.where(pos.any(dim=-1), 0.5 * min_tau, 1.0)
+    return torch.clamp(torch.amax(tau_vals, dim=-1), min=1.0)  # LargestActiveSet
 
 
 def _pi_accept(params: Params, lamb, theta, error_sum):
@@ -97,20 +141,45 @@ def _pi_reject(params: Params, lamb, error_sum):
     return lamb * params.lamb_inc, (0.0 if error_sum > 0.0 else error_sum)
 
 
+def _pi_lanes(params: Params, lamb, theta, error_sum, accepted):
+    """The PI update of every lane, accepted or rejected."""
+    error = math.log(params.theta_ref) - torch.log(torch.clamp(theta, min=1e-300))
+    es_acc = error_sum + error
+    lamb_acc = torch.clamp(
+        lamb / torch.exp(params.K_P * error + params.K_I * es_acc), min=params.lamb_min
+    )
+    lamb_n = torch.where(accepted, lamb_acc, lamb * params.lamb_inc)
+    es_n = torch.where(accepted, es_acc, torch.where(error_sum > 0.0, 0.0, error_sum))
+    return lamb_n, es_n
+
+
+def _reduced_lamb(params: Params, lamb):
+    """lambda after a first Newton step that converged."""
+    if torch.is_tensor(lamb):
+        return torch.clamp(lamb * params.lamb_red, min=params.lamb_min)
+    return float(np.maximum(lamb * params.lamb_red, params.lamb_min))
+
+
 def _evaluate(cfg: ControlCfg, xn, yn, counters: Counters):
     it = evaluate_iterate(cfg.fns, xn, yn)
     return it, counters.add(**iterate_eval_counts(cfg.m))
+
+
+def _start(cfg: ControlCfg, orig: Iterate, lamb, rho, counters):
+    """tau, the Newton method's carry and the unscaled implicit function,
+    with which the controllers measure residuals (reference
+    ``distance_ratio_control.py:28``)."""
+    tau = compute_tau(cfg, orig, lamb, rho)
+    carry, counters = cfg.newton_init(orig, lamb, rho, tau, counters)
+    func = impl.make_step_func(orig, lamb, cfg.lb, cfg.ub, scaled=False)
+    return carry, func, counters
 
 
 def _distance_ratio(cfg: ControlCfg):
     params = cfg.params
 
     def step(orig: Iterate, lamb, rho, error_sum, counters) -> ControlResult:
-        compute_tau(cfg, orig, lamb, rho)
-        carry, counters = cfg.newton_init(orig, lamb, rho, counters)
-        # controllers measure residuals with the unscaled implicit function
-        # (reference distance_ratio_control.py:28)
-        func = impl.make_step_func(orig, lamb, cfg.lb, cfg.ub, scaled=False)
+        carry, func, counters = _start(cfg, orig, lamb, rho, counters)
 
         step1, carry, counters = cfg.newton_step(carry, orig, counters)
         mid_it, counters = _evaluate(cfg, step1.xn, step1.yn, counters)
@@ -122,7 +191,7 @@ def _distance_ratio(cfg: ControlCfg):
         conv1 = mid_norm <= params.newton_tol
         zero1 = diff1 == 0.0
         if conv1 or zero1:
-            lamb_n = float(np.maximum(lamb * params.lamb_red, params.lamb_min)) if conv1 else lamb
+            lamb_n = _reduced_lamb(params, lamb) if conv1 else lamb
             return ControlResult(
                 mid_it, lamb_n, True, error_sum, step1.active_set, counters, step1.rcond, first
             )
@@ -153,33 +222,23 @@ def _distance_ratio_lanes(cfg: ControlCfg):
     """DistanceRatio on a lane stack: ``lamb``, ``rho`` and ``error_sum``
     are (B,) tensors, ``counters`` holds (B,) tensors."""
     params = cfg.params
-    log_theta_ref = math.log(params.theta_ref)
 
     def step(orig: Iterate, lamb, rho, error_sum, counters) -> ControlResult:
-        compute_tau(cfg, orig, lamb, rho)
-        carry, counters = cfg.newton_init(orig, lamb, rho, counters)
-        func = impl.make_step_func(orig, lamb, cfg.lb, cfg.ub, scaled=False)
+        carry, func, counters = _start(cfg, orig, lamb, rho, counters)
 
         step1, carry, counters = cfg.newton_step(carry, orig, counters)
         mid_it, counters = _evaluate(cfg, step1.xn, step1.yn, counters)
         conv1 = impl.value_norm(func, mid_it, rho, fns=cfg.fns) <= params.newton_tol
         early = conv1 | (step1.diff == 0.0)
-        lamb_early = torch.where(conv1, torch.clamp(lamb * params.lamb_red, min=params.lamb_min), lamb)
+        lamb_early = torch.where(conv1, _reduced_lamb(params, lamb), lamb)
 
         step2, _, counters2 = cfg.newton_step(carry, mid_it, counters)
         fin_it, counters2 = _evaluate(cfg, step2.xn, step2.yn, counters2)
         zero2 = step2.diff == 0.0
         theta = step2.diff / torch.where(step1.diff == 0.0, 1.0, step1.diff)
         accepted = theta <= params.theta_max
-        # the PI controller on log(theta): accept, reject, or a zero second
-        # step, accepted at unchanged lambda
-        error = log_theta_ref - torch.log(torch.clamp(theta, min=1e-300))
-        es_acc = error_sum + error
-        lamb_acc = torch.clamp(
-            lamb / torch.exp(params.K_P * error + params.K_I * es_acc), min=params.lamb_min
-        )
-        lamb_full = torch.where(accepted, lamb_acc, lamb * params.lamb_inc)
-        es_full = torch.where(accepted, es_acc, torch.where(error_sum > 0.0, 0.0, error_sum))
+        # accept, reject, or a zero second step, accepted at unchanged lambda
+        lamb_full, es_full = _pi_lanes(params, lamb, theta, error_sum, accepted)
         lamb_full = torch.where(zero2, lamb, lamb_full)
         es_full = torch.where(zero2, error_sum, es_full)
 
@@ -197,14 +256,121 @@ def _distance_ratio_lanes(cfg: ControlCfg):
     return step
 
 
+def _residuum_ratio(cfg: ControlCfg, lanes: bool):
+    """One Newton step; theta is the ratio of the residual after it to the
+    residual at the origin (reference ``residuum_ratio_control.py``).  One
+    body on tensors for both forms; one instance reads its decision with
+    one host read, its lambda and PI sum going in as 0-dim CPU tensors."""
+    params = cfg.params
+
+    def step(orig: Iterate, lamb, rho, error_sum, counters) -> ControlResult:
+        carry, func, counters = _start(cfg, orig, lamb, rho, counters)
+        step1, _, counters = cfg.newton_step(carry, orig, counters)
+        mid_it, counters = _evaluate(cfg, step1.xn, step1.yn, counters)
+        mid_norm = impl.value_norm(func, mid_it, rho, fns=cfg.fns)
+        orig_norm = impl.value_norm(func, orig, rho, fns=cfg.fns)
+        if not lanes:
+            lamb, error_sum = (torch.tensor(v, dtype=mid_norm.dtype) for v in (lamb, error_sum))
+
+        conv1 = mid_norm <= params.newton_tol
+        theta = mid_norm / torch.where(orig_norm == 0.0, 1.0, orig_norm)
+        accepted = theta <= params.theta_max
+        lamb_n, es_n = _pi_lanes(params, lamb, theta, error_sum, accepted)
+        # a first step that converged: accept with reduced lambda
+        lamb_n = torch.where(conv1, _reduced_lamb(params, lamb), lamb_n)
+        accepted = accepted | conv1
+        es_n = torch.where(conv1, error_sum, es_n)
+        if not lanes:
+            lamb_n, accepted, es_n = torch.stack([lamb_n, accepted.to(lamb_n.dtype), es_n]).tolist()
+            accepted = bool(accepted)
+        return ControlResult(
+            mid_it, lamb_n, accepted, es_n, step1.active_set, counters, float("nan"), (mid_it.x, mid_it.y)
+        )
+
+    return step
+
+
+def _exact(cfg: ControlCfg, lanes: bool):
+    """Newton to convergence, at most ``newton_max_it`` steps: halve lambda
+    on success, double it on failure, a residual contracting by less than
+    ``rate_bound`` per step or non-finite (reference ``exact_control.py``)."""
+    params = cfg.params
+    rate_bound = 0.5
+
+    def step(orig: Iterate, lamb, rho, error_sum, counters) -> ControlResult:
+        carry, func, counters = _start(cfg, orig, lamb, rho, counters)
+        val = impl.value_norm(func, orig, rho, fns=cfg.fns)
+        state = torch.zeros_like(val, dtype=torch.int64)  # 0 iterating, 1 converged, 2 failed
+        it, active, first = orig, torch.zeros_like(orig.x, dtype=torch.bool), (orig.x, orig.y)
+
+        for i in range(params.newton_max_it):
+            running = state == 0
+            if not lanes and not bool(running):
+                break
+            step_i, carry, counters_n = cfg.newton_step(carry, it, counters)
+            next_it, counters_n = _evaluate(cfg, step_i.xn, step_i.yn, counters_n)
+            next_val = impl.value_norm(func, next_it, rho, fns=cfg.fns)
+            converged = next_val <= params.newton_tol
+            rate_bad = next_val / torch.where(val == 0.0, 1.0, val) > rate_bound
+            bad = (~converged & rate_bad) | ~torch.isfinite(next_val)
+            state_n = torch.where(converged, 1, torch.where(bad, 2, 0))
+            if i == 0:
+                first = (next_it.x, next_it.y)
+            if lanes:
+                it = select(running, next_it, it)
+                counters = select(running, counters_n, counters)
+                active = select(running, step_i.active_set, active)
+                val = torch.where(running, next_val, val)
+                state = torch.where(running, state_n, state)
+            else:
+                it, counters, active, val, state = next_it, counters_n, step_i.active_set, next_val, state_n
+
+        success = state == 1
+        if lanes:
+            lamb_n = torch.where(success, 0.5 * lamb, 2.0 * lamb)
+        else:
+            success = bool(success)
+            lamb_n = 0.5 * lamb if success else 2.0 * lamb
+        return ControlResult(it, lamb_n, success, error_sum, active, counters, float("nan"), first)
+
+    return step
+
+
+def _fixed(cfg: ControlCfg, lanes: bool):
+    """One Newton step, always accepted, lambda back at ``lamb_init``
+    (reference ``fixed_control.py``)."""
+    params = cfg.params
+
+    def step(orig: Iterate, lamb, rho, error_sum, counters) -> ControlResult:
+        carry, _, counters = _start(cfg, orig, lamb, rho, counters)
+        step1, _, counters = cfg.newton_step(carry, orig, counters)
+        mid_it, counters = _evaluate(cfg, step1.xn, step1.yn, counters)
+        lamb_n, accepted = float(params.lamb_init), True
+        if lanes:
+            lamb_n = torch.full_like(lamb, params.lamb_init)
+            accepted = torch.ones_like(lamb, dtype=torch.bool)
+        return ControlResult(
+            mid_it, lamb_n, accepted, error_sum, step1.active_set, counters, float("nan"), (mid_it.x, mid_it.y)
+        )
+
+    return step
+
+
 def make_controller(cfg: ControlCfg, lanes: bool = False):
     """Factory keyed on StepControlType (reference ``step/step_control.py:123-150``);
     ``lanes`` selects the form for a lane stack."""
     sct = cfg.params.step_control_type
-    if sct != StepControlType.DistanceRatio:
-        item = "A10" if sct in (StepControlType.BoxReduced, StepControlType.Optimizing) else "A5"
-        raise NotImplementedError(f"step control {sct.name} is not yet ported (ROADMAP {item})")
-    return _distance_ratio_lanes(cfg) if lanes else _distance_ratio(cfg)
+    if sct == StepControlType.DistanceRatio:
+        return _distance_ratio_lanes(cfg) if lanes else _distance_ratio(cfg)
+    if sct == StepControlType.ResiduumRatio:
+        return _residuum_ratio(cfg, lanes)
+    if sct == StepControlType.Exact:
+        return _exact(cfg, lanes)
+    if sct == StepControlType.Fixed:
+        return _fixed(cfg, lanes)
+    if sct in (StepControlType.BoxReduced, StepControlType.Optimizing):
+        raise NotImplementedError(f"step control {sct.name} is not yet ported (ROADMAP A10)")
+    raise ValueError(f"Unknown step control type {sct}")
 
 
 def _iterate_finite(it: Iterate) -> bool:

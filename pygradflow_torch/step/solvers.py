@@ -1,11 +1,22 @@
 """Step solvers: KKT assembly and solve for one semismooth Newton step
 (counterpart of ``pygradflow_tpu/step/solvers.py``).
 
-The Symmetric formulation is ported (scaled, lambda = 1/dt,
-fact = 1/(1 + lambda rho)): the system ``[[H + lambda I, J^T], [J,
--lambda fact I]]`` with the rows *and* columns of active variables replaced
-by identity and the right-hand side condensed to match, which keeps the
-matrix symmetric for LDL^T and its inertia test (m negative eigenvalues).
+The formulations (lambda = 1/dt, fact = 1/(1 + lambda rho)), each a dense
+``(n+m, n+m)`` system in which active variables get identity rows:
+
+- Standard: the unscaled residual Jacobian ``implicit_func.deriv``, with
+  the full augmented Hessian at the runtime rho;
+- Asymmetric: ``[[H + lambda I, J^T], [J, -lambda fact I]]`` with identity
+  rows for the active variables, ``H`` the plain Lagrangian Hessian;
+  Extended shares its assembly, as in the JAX package;
+- Symmetric (the default): the same system with the rows *and* columns of
+  active variables replaced by identity and the right-hand side condensed
+  to match, which keeps the matrix symmetric for LDL^T and its inertia
+  test (m negative eigenvalues).
+
+Standard and Asymmetric factor a non-symmetric matrix with the configured
+tier, the PallasLDLT tier included, as the JAX package does.
+``params.step_solver`` replaces all of this by a user's ``StepSolverDef``.
 
 Assembly and solve serve one instance and a lane stack alike: with a
 (B,) ``lamb`` and ``rho`` the KKT matrices are a (B, n+m, n+m) stack and
@@ -92,9 +103,8 @@ def step_solver_def(params: Params, fns=None) -> StepSolverDef:
     """The configured formulation; ``fns`` (the evaluation closures, lane
     closures in a batch) is what the matrix-free Schur def probes."""
     if params.step_solver is not None:
-        raise NotImplementedError(
-            "custom step solvers (params.step_solver) are not yet ported (ROADMAP A5)"
-        )
+        # a callable params -> StepSolverDef (reference params.step_solver)
+        return params.step_solver(params)
     solver_type = params.step_solver_type
     if params.matrix_free and solver_type != StepSolverType.Schur:
         raise ValueError(
@@ -123,14 +133,77 @@ def step_solver_def(params: Params, fns=None) -> StepSolverDef:
                 schur_lin, fns, params.schur_block_size, params.schur_dual_block_size
             )
         return schur_def(schur_lin, params.schur_block_size, params.schur_dual_block_size)
-    if solver_type != StepSolverType.Symmetric:
-        raise NotImplementedError(
-            f"step solver {solver_type.name} is not yet ported (ROADMAP A5)"
-        )
     if params.report_rcond:
         raise NotImplementedError("report_rcond is not yet ported (ROADMAP A4)")
-    lin = linear_solver(params.linear_solver_type, symmetric=True)
-    return _symmetric_def(lin, params.inertia_correction)
+    symmetric = solver_type == StepSolverType.Symmetric
+    lin = linear_solver(params.linear_solver_type, symmetric=symmetric)
+    if solver_type == StepSolverType.Standard:
+        return _standard_def(lin)
+    if symmetric:
+        return _symmetric_def(lin, params.inertia_correction)
+    return _asymmetric_def(lin)  # Asymmetric and Extended
+
+
+def _standard_def(lin: LinearSolver) -> StepSolverDef:
+    def factor(func: impl.StepFunc, H, J, active, rho):
+        mat = impl.deriv(func, J, H, active)
+        return Factorization(fact=lin.factor(mat), active=active, hess_shifted=H, jac=J, inertia_ok=None)
+
+    def solve(f: Factorization, func: impl.StepFunc, it: Iterate, rho):
+        rx, ry = impl.value_at(func, it, rho, f.active)
+        sol = lin.solve(f.fact, torch.cat([rx, ry], dim=-1))
+        n = rx.shape[-1]
+        return sol[..., :n], sol[..., n:]
+
+    return StepSolverDef(
+        scaled=False,
+        symmetric=False,
+        hess_rho_is_runtime=True,
+        factor=factor,
+        solve=solve,
+    )
+
+
+def _asymmetric_def(lin: LinearSolver) -> StepSolverDef:
+    def factor(func: impl.StepFunc, H, J, active, rho):
+        lamb = func.lamb
+        n = H.shape[-1]
+        m = J.shape[-2]
+        eye_n = torch.eye(n, dtype=H.dtype, device=H.device)
+
+        Hl = H + lanes(lamb, 2) * eye_n
+        act_col = active[..., :, None]
+        M11 = torch.where(act_col, eye_n, Hl)
+        M12 = torch.where(act_col, 0.0, J.mT)
+        M22 = _lower_block(m, lamb, rho, H.dtype, H.device).expand(J.shape[:-2] + (m, m))
+
+        mat = torch.cat(
+            [torch.cat([M11, M12], dim=-1), torch.cat([J, M22], dim=-1)], dim=-2
+        )
+        return Factorization(
+            fact=lin.factor(mat), active=active, hess_shifted=Hl, jac=J, inertia_ok=None
+        )
+
+    def solve(f: Factorization, func: impl.StepFunc, it: Iterate, rho):
+        lamb = func.lamb
+        dt = 1.0 / lamb
+        pfact = 1.0 / (1.0 + lamb * rho)
+
+        rx, ry = impl.value_at(func, it, rho, f.active)
+        n = rx.shape[-1]
+        var_rhs = torch.where(f.active, lanes(dt, 1) * rx, rx)
+        sol = lin.solve(f.fact, torch.cat([var_rhs, lanes(pfact, 1) * ry], dim=-1))
+        dx = sol[..., :n]
+        dy = lanes(pfact, 1) * (sol[..., n:] - lanes(rho, 1) * ry)
+        return dx, dy
+
+    return StepSolverDef(
+        scaled=True,
+        symmetric=False,
+        hess_rho_is_runtime=False,
+        factor=factor,
+        solve=solve,
+    )
 
 
 def _symmetric_def(lin: LinearSolver, inertia_correction: bool) -> StepSolverDef:

@@ -16,6 +16,22 @@ def lanes(s, k: int):
     return s
 
 
+class PerDevice:
+    """A value made by ``make(device)`` on first use on a device and kept,
+    so constant data (a QP's matrices, scaling weights) is copied to the
+    card once, not at every evaluation."""
+
+    def __init__(self, make):
+        self._make = make
+        self._copies = {}
+
+    def on(self, x):
+        """The copy on the device of tensor ``x``."""
+        if x.device not in self._copies:
+            self._copies[x.device] = self._make(x.device)
+        return self._copies[x.device]
+
+
 def tree_map(fn, *trees):
     """``fn`` over the tensors of equally shaped (Named)tuples of tensors."""
     first = trees[0]

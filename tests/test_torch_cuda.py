@@ -216,3 +216,39 @@ def test_left_update_carries_a_zero_pivot(cuda, k):
     packed = lk.ldlt_factor_ll(torch.tensor(a, dtype=torch.float32, device=cuda))
     assert torch.isnan(torch.diagonal(packed)[k:]).any()
     assert torch.isfinite(torch.tril(packed[:k, :k])).all()
+
+
+def test_ldexp_on_cuda_equals_numpy(cuda):
+    """``torch.ldexp`` on the card, which the power-of-2 scaling applies,
+    against ``np.ldexp`` bit for bit on the seeded pairs of the CPU test
+    (|e| up to 1100: overflowing and subnormal results, zeros, infinities);
+    and the scaling's own ``ldexp`` with its int64 weights on the card."""
+    from pygradflow_torch.scale import _DeviceWeights, ldexp
+
+    from .torch_parity import ldexp_pairs
+
+    x, e = ldexp_pairs()
+    with np.errstate(over="ignore"):
+        ref = np.ldexp(x, e).view(np.int64)
+    ours = torch.ldexp(torch.tensor(x, device=cuda), torch.tensor(e, device=cuda)).cpu().numpy()
+    np.testing.assert_array_equal(ours.view(np.int64), ref)
+    scaled = ldexp(torch.tensor(x, device=cuda), _DeviceWeights(e)).cpu().numpy()
+    np.testing.assert_array_equal(scaled.view(np.int64), ref)
+
+
+def test_full_newton_pendulum_on_cuda_matches_cpu(cuda):
+    """Full Newton at N = 16 on PallasLDLT: one B1' launch per inner Newton
+    step on the card, the same status and counts as the CPU run (B1's plain
+    version), x to 1e-6."""
+    params = Params(
+        linear_solver_type=LinearSolverType.PallasLDLT, iteration_limit=3000, validate_input=False, newton_type="Full"
+    )
+    problem = PendulumControl(N=16)
+    x0 = problem.x0_trajectory()
+    ref = Solver(problem, params, device="cpu").solve(x0)
+    before = dict(lk.LAUNCHES)
+    res = Solver(problem, params, device=cuda).solve(torch.tensor(x0, device=cuda))
+    launched = {k: lk.LAUNCHES[k] - before[k] for k in before}
+    assert launched["rl"] > res.iterations and launched["ll"] == launched["rl_batched"] == 0
+    assert (res.status, res.iterations, res.num_accepted_steps) == (ref.status, ref.iterations, ref.num_accepted_steps)
+    np.testing.assert_allclose(res.x.cpu().numpy(), ref.x.numpy(), rtol=0, atol=1e-6)

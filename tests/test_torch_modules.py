@@ -207,10 +207,10 @@ def test_import_leaves_jax_out():
     "kwargs,item",
     [
         (dict(ANCHOR, report_rcond=True), "A4"),
-        (dict(ANCHOR, scaling_type="GradJac"), "A2"),
-        (dict(ANCHOR, newton_type="Full"), "A5"),
-        (dict(ANCHOR, step_control_type="Exact"), "A5"),
-        (dict(ANCHOR, penalty_update="Constant"), "A5"),
+        (dict(ANCHOR, step_control_type="BoxReduced"), "A10"),
+        (dict(ANCHOR, step_control_type="Optimizing"), "A10"),
+        (dict(ANCHOR, display=True), "A12"),
+        (dict(ANCHOR, deriv_check="CheckFirst"), "A12"),
         (dict(linear_solver_type="MINRES"), "A8"),
         (dict(ANCHOR, collect_path=True), "A6"),
         (dict(ANCHOR, precision="Single"), "A7"),
@@ -355,3 +355,28 @@ def test_twin_problems_match_jax(name, args):
         if jp.num_cons > 0:
             _close(tp.cons(tx), jp.cons(jx))
             _close(tp.cons_jac(tx), jp.cons_jac(jx))
+
+
+_PORTED_OPTIONS = (
+    [dict(newton_type=nt) for nt in ("Simplified", "Full", "ActiveSet", "Globalized", "FixedActiveSet")]
+    + [dict(step_solver_type=st) for st in ("Standard", "Asymmetric", "Extended", "Symmetric")]
+    + [dict(step_solver_type="Schur", schur_block_size=3)]
+    + [dict(step_control_type=sc) for sc in ("DistanceRatio", "ResiduumRatio", "Exact", "Fixed")]
+    + [dict(active_set_type=a) for a in ("Standard", "SmallestActiveSet", "LargestActiveSet")]
+    + [dict(active_set_type="Explicit", active_set_tau=0.5)]
+    + [dict(penalty_update=pu) for pu in pygradflow_torch.PenaltyUpdate.__members__]
+    + [dict(scaling_type=st, scaling_primal=TPendulum(N=8).x0_trajectory(), scaling_dual=np.zeros(18)) for st in ("Nominal", "GradJac", "KKT")]
+    + [dict(scaling_type="NoScaling")]
+)
+
+
+@pytest.mark.parametrize("kwargs", _PORTED_OPTIONS, ids=lambda kw: "-".join(str(v) for v in kw.values() if isinstance(v, str)))
+def test_ported_options_build_both_loops(kwargs):
+    """Every option of the discrete loop that this port holds builds the
+    single and the lockstep loop on the CPU (Custom scaling is
+    ``test_torch_problem_scale.py``'s)."""
+    from pygradflow_torch.parallel import BatchedSolver
+
+    tp = pygradflow_torch.Params(**kwargs)
+    pygradflow_torch.Solver(TPendulum(N=8), tp, device="cpu")
+    BatchedSolver(TPendulum(N=8), tp, device="cpu")

@@ -27,6 +27,17 @@ def saddle(rng, n, m):
     return np.block([[k, j.T], [j, -0.1 * np.eye(m)]])
 
 
+def ldexp_pairs(count=20000, seed=11):
+    """Seeded (x, e) pairs: x across 16 decades, both signs, with zeros,
+    subnormals and infinities; |e| up to 1100, so that results overflow
+    and go subnormal."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(count) * 10.0 ** rng.uniform(-8, 8, count)
+    x[:6] = [0.0, -0.0, 5e-324, -2.5e-310, np.inf, -np.inf]
+    e = rng.integers(-1100, 1101, count)
+    return x, e
+
+
 def params_pair(**kwargs):
     """The same configuration for both packages."""
     import pygradflow_tpu
@@ -41,6 +52,42 @@ def tensor(a):
 
 def numpy(t):
     return t.detach().cpu().numpy()
+
+
+F64_TOL = 1e-8
+"""x, y and d of a port solve against the JAX one on the f64 tiers."""
+
+PALLAS_TOL = 1e-6
+"""The same through the mixed-precision LDL^T tier."""
+
+
+def assert_same_solve(tr, jr, tol=F64_TOL):
+    """A port result against a JAX one: status, iteration and accepted-step
+    counts, and evaluation counts equal; x, y and d within ``tol``."""
+    assert (tr.status.name, tr.iterations, tr.num_accepted_steps) == (
+        jr.status.name, jr.iterations, jr.num_accepted_steps,
+    )
+    assert {c.name(): int(n) for c, n in tr.num_evals.items()} == {
+        c.name(): int(n) for c, n in jr.num_evals.items()
+    }
+    for ours, ref in ((tr.x, jr.x), (tr.y, jr.y), (tr.d, jr.d)):
+        np.testing.assert_allclose(numpy(ours), np.asarray(ref), rtol=0, atol=tol)
+
+
+def solve_both(jprob, tprob, x0, y0=None, jparams=None, tparams=None, **kwargs):
+    """The same solve in both packages, the port on the CPU; ``kwargs``
+    make the same ``Params`` for both unless ``jparams``/``tparams`` are
+    given."""
+    import pygradflow_torch
+    import pygradflow_tpu
+
+    jp, tp = params_pair(**kwargs)
+    jp, tp = jparams or jp, tparams or tp
+    jr = pygradflow_tpu.Solver(jprob, jp).solve(x0, y0)
+    tr = pygradflow_torch.Solver(tprob, tp, device="cpu").solve(
+        None if x0 is None else tensor(x0), None if y0 is None else tensor(y0)
+    )
+    return jr, tr
 
 
 class Rosenbrock(Problem):
@@ -191,3 +238,94 @@ class Tame(Problem):
 
     def cons(self, z):
         return (z[0] + z[1] - 1.0)[None]
+
+
+class _HSTwin(Problem):
+    """A Hock-Schittkowski problem of ``pygradflow_tpu/runners/hs.py``,
+    written again with torch operations (its bounds, start point and
+    constraint bounds copied from the spec)."""
+
+    x0: np.ndarray
+
+    def __init__(self, var_lb, var_ub, cons_lb, cons_ub):
+        super().__init__(var_lb, var_ub, cons_lb=cons_lb, cons_ub=cons_ub)
+
+
+class HS62(_HSTwin):
+    """Torch twin of ``hs62``: a blending problem with log terms and
+    objective slopes near 1e4."""
+
+    x0 = np.array([0.7, 0.2, 0.1])
+
+    def __init__(self):
+        super().__init__(np.zeros(3), np.ones(3), np.zeros(1), np.zeros(1))
+
+    def obj(self, x):
+        return -32.174 * (
+            255.0 * torch.log((x[0] + x[1] + x[2] + 0.03) / (0.09 * x[0] + x[1] + x[2] + 0.03))
+            + 280.0 * torch.log((x[1] + x[2] + 0.03) / (0.07 * x[1] + x[2] + 0.03))
+            + 290.0 * torch.log((x[2] + 0.03) / (0.13 * x[2] + 0.03))
+        )
+
+    def cons(self, x):
+        return torch.stack([x[0] + x[1] + x[2] - 1.0])
+
+
+class HS104(_HSTwin):
+    """Torch twin of ``hs104``: alkylation-reactor design with fractional
+    powers and a ranged constraint on the objective's own expression."""
+
+    x0 = np.array([6.0, 3.0, 0.4, 0.2, 6.0, 6.0, 1.0, 0.5])
+
+    def __init__(self):
+        super().__init__(
+            np.full(8, 0.1), np.full(8, 10.0),
+            np.array([0.0, 0.0, 0.0, 0.0, 1.0]), np.array([np.inf] * 4 + [4.2]),
+        )
+
+    @staticmethod
+    def _f(x):
+        return 0.4 * x[0] ** 0.67 * x[6] ** (-0.67) + 0.4 * x[1] ** 0.67 * x[7] ** (-0.67) + 10.0 - x[0] - x[1]
+
+    def obj(self, x):
+        return self._f(x)
+
+    def cons(self, x):
+        return torch.stack(
+            [
+                1.0 - 0.0588 * x[4] * x[6] - 0.1 * x[0],
+                1.0 - 0.0588 * x[5] * x[7] - 0.1 * x[0] - 0.1 * x[1],
+                1.0 - 4.0 * x[2] / x[4] - 2.0 / (x[2] ** 0.71 * x[4]) - 0.0588 * x[6] / x[2] ** 1.3,
+                1.0 - 4.0 * x[3] / x[5] - 2.0 / (x[3] ** 0.71 * x[5]) - 0.0588 * x[7] / x[3] ** 1.3,
+                self._f(x),
+            ]
+        )
+
+
+class HS106(_HSTwin):
+    """Torch twin of ``hs106``: heat-exchanger design with badly scaled
+    bilinear constraints."""
+
+    x0 = np.array([5000.0, 5000.0, 5000.0, 200.0, 350.0, 150.0, 225.0, 425.0])
+
+    def __init__(self):
+        super().__init__(
+            np.array([100.0, 1000.0, 1000.0, 10.0, 10.0, 10.0, 10.0, 10.0]),
+            np.array([10000.0, 10000.0, 10000.0, 1000.0, 1000.0, 1000.0, 1000.0, 1000.0]),
+            np.zeros(6), np.full(6, np.inf),
+        )
+
+    def obj(self, x):
+        return x[0] + x[1] + x[2]
+
+    def cons(self, x):
+        return torch.stack(
+            [
+                1.0 - 0.0025 * (x[3] + x[5]),
+                1.0 - 0.0025 * (x[4] + x[6] - x[3]),
+                1.0 - 0.01 * (x[7] - x[4]),
+                x[0] * x[5] - 833.33252 * x[3] - 100.0 * x[0] + 83333.333,
+                x[1] * x[6] - 1250.0 * x[4] - x[1] * x[3] + 1250.0 * x[3],
+                x[2] * x[7] - 1250000.0 - x[2] * x[4] + 2500.0 * x[4],
+            ]
+        )
