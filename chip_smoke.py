@@ -71,7 +71,25 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    ``QuadraticProblem``, the boxed Laplacian QP at n = 1000 (m = 0, B1'
    only) under ActiveSet Newton; each against the port's CPU run.  The
    last KKT matrix that (e) hands B1' is then held against the plain
-   version as in phase 3, with ``torch.linalg.cholesky`` as its yardstick.
+   version as in phase 3, with ``torch.linalg.cholesky`` as its yardstick;
+9. last options: the discrete loop's last options on the card, each run
+   held against the port's CPU run of the same configuration (status,
+   iteration and accepted-step counts equal, x to 1e-6 when Optimal), with
+   its launches, launches per iteration and ms per iteration beside those
+   of phase 4, 5 or 6 for the same problem: (a) ``report_rcond`` on the
+   pendulum at N = 128 (B1' only) and N = 256 (B3' only), rcond equal to
+   the CPU run's to 1e-8 relative and the launches of phase 4 (the
+   estimate adds solves, not factors); (b) ``collect_path`` at N = 128, the
+   path's accepted + 1 columns and model times equal to the CPU run's to
+   1e-6; (c) the Symmetric step solver with MINRES at N = 128 and with
+   GMRES at N = 64 (no kernel); (d) ``BatchedSolver`` on 16384 lanes of
+   Rosenbrock under the Optimizing and the BoxReduced controls, every lane
+   Optimal, with the inner loops' host reads per outer iteration; (e)
+   phase 5's fleet with ``report_rcond`` (B2' only), rcond of lanes 0-7
+   equal to the CPU run's to 1e-8 relative; (f) BoxReduced on the boxed
+   Laplacian QP at n = 250 (the reduced Hessian through the plain LU, no
+   kernel).  The CPU references run in worker processes while the card
+   runs.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
@@ -106,6 +124,10 @@ KERNELS = {
 }
 FLEET_N, FLEET_B, CPU_LANES = 64, 128, 8
 HEADLINE_B = 16384
+# ms per iteration and launches of phases 4-6, which phase 9 prints beside
+# its own for the same problem
+PHASE_MS = {}
+SLICE_LAUNCHES = {}
 
 
 def fail(msg):
@@ -653,6 +675,8 @@ def slice_phase(card):
             )
             for k in totals:
                 totals[k] += used[k]
+            PHASE_MS[("pendulum", N)] = 1e3 * wall / res.iterations
+            SLICE_LAUNCHES[N] = used[key]
     return totals
 
 
@@ -712,6 +736,7 @@ def fleet_phase(card):
             f"solves/s={FLEET_B / wall:.1f} ms/iter={1e3 * wall / iters:.2f} [{card}]",
             flush=True,
         )
+        PHASE_MS[("fleet", FLEET_N)] = 1e3 * wall / iters
     used = dict(lk.LAUNCHES)
     if used["rl_batched"] == 0 or used["rl"] != 0 or used["ll"] != 0:
         fail(f"fleet: launches {used}, expected only 'rl_batched'")
@@ -749,6 +774,7 @@ def headline_phase(card):
             f"solves/s={HEADLINE_B / wall:.1f} [{card}]",
             flush=True,
         )
+        PHASE_MS["headline"] = 1e3 * wall / int(res.iterations.max())
 
     # compaction only permutes lanes; batched BLAS may pick other algorithms
     # at other widths, so x is held to X_TOL and its bitwise equality reported
@@ -982,6 +1008,187 @@ def options_phase(card):
     return totals, dict(case=f"QP KKT, last of phase 8 (e), {unit} unit rows", shape=list(a64.shape), **qp_case)
 
 
+# GMRES at N = 64 and the boxed QP at n = 250, not N = 128 and n = 1000:
+# PERF.md section 4 gives the cuts
+LAST_N, LAST_LL_N, GMRES_N, LAST_QP_N = 128, 256, 64, 250
+RCOND_RTOL = 1e-8
+
+
+def _last_config(name):
+    """Problem, params, start points and whether it is a batch, of the phase
+    9 run ``name``; the card and the CPU reference build it alike."""
+    import numpy as np
+
+    from pygradflow_torch import LinearSolverType, Params
+    from pygradflow_torch.runners.control import PendulumControl
+
+    pallas = dict(linear_solver_type=LinearSolverType.PallasLDLT, iteration_limit=3000, validate_input=False)
+    iterative = dict(pallas, step_solver_type="Symmetric")
+    lanes = dict(validate_input=False, rho=1e-1)
+    pendulum = {
+        "(a) rcond": (LAST_N, dict(pallas, report_rcond=True)),
+        "(a) rcond ll": (LAST_LL_N, dict(pallas, report_rcond=True)),
+        "(b) collect_path": (LAST_N, dict(pallas, collect_path=True)),
+        "(c) MINRES": (LAST_N, dict(iterative, linear_solver_type=LinearSolverType.MINRES)),
+        "(c) GMRES": (GMRES_N, dict(iterative, linear_solver_type=LinearSolverType.GMRES)),
+    }
+    if name in pendulum:
+        N, kwargs = pendulum[name]
+        problem = PendulumControl(N=N)
+        return problem, Params(**kwargs), problem.x0_trajectory(), False
+    if name.startswith("(d)"):
+        from tests.torch_parity import Rosenbrock
+
+        x0 = np.random.default_rng(0).uniform(-1.5, 1.5, size=(HEADLINE_B, 2))
+        return Rosenbrock(), Params(**lanes, step_control_type=name.split()[1]), x0, True
+    if name == "(e) fleet rcond":
+        problem = PendulumControl(N=FLEET_N)
+        rng = np.random.default_rng(0)
+        x0 = problem.x0_trajectory()[None, :] + 0.02 * rng.standard_normal((FLEET_B, problem.num_vars))
+        return problem, Params(**dict(pallas, report_rcond=True)), x0, True
+    assert name == "(f) BoxReduced QP"
+    problem, x0 = boxed_qp(LAST_QP_N)
+    params = Params(linear_solver_type=LinearSolverType.PallasLDLT, lamb_init=1e-12, iteration_limit=1000,
+                    step_control_type="BoxReduced")
+    return problem, params, x0, False
+
+
+LAST_RUNS = [
+    "(a) rcond", "(a) rcond ll", "(b) collect_path", "(c) MINRES", "(d) Optimizing", "(d) BoxReduced",
+    "(e) fleet rcond", "(f) BoxReduced QP", "(c) GMRES",
+]
+"""The card's order; the CPU references start longest first, GMRES's."""
+
+
+def _last_reference(name):
+    """The port's CPU run of the phase 9 run ``name`` (in a worker process),
+    as plain data: the first CPU_LANES lanes of a batch."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from pygradflow_torch import Solver
+    from pygradflow_torch.parallel import BatchedSolver
+
+    torch.set_num_threads(1)
+    problem, params, x0, batched = _last_config(name)
+    t0 = time.perf_counter()
+    if batched:
+        res = BatchedSolver(problem, params, device="cpu").solve(x0[:CPU_LANES])
+        out = dict(status=res.status.tolist(), iterations=res.iterations.tolist(),
+                   accepted_steps=res.accepted_steps.tolist(), x=res.x.numpy(),
+                   rcond=None if res.rcond is None else res.rcond.numpy())
+    else:
+        res = Solver(problem, params, device="cpu").solve(torch.tensor(x0))
+        out = dict(status=res.status.name, iterations=res.iterations, num_accepted_steps=res.num_accepted_steps,
+                   x=res.x.numpy(), rcond=res.final_rcond)
+        if params.collect_path:
+            out.update(path=res.path.numpy(), model_times=res.model_times.numpy())
+    return dict(out, wall=time.perf_counter() - t0)
+
+
+def _as_result(ref, batched):
+    """A CPU reference as the result objects ``_hold`` and ``_check_lanes``
+    read."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import SolverStatus
+
+    if batched:
+        return SimpleNamespace(**{k: np.asarray(ref[k]) for k in ("status", "iterations", "accepted_steps")},
+                               x=torch.as_tensor(ref["x"]))
+    return SimpleNamespace(status=SolverStatus[ref["status"]], iterations=ref["iterations"],
+                           num_accepted_steps=ref["num_accepted_steps"], x=torch.as_tensor(ref["x"]))
+
+
+def _rcond_close(label, ours, ref):
+    import numpy as np
+
+    ours, ref = np.atleast_1d(np.asarray(ours, dtype=float)), np.atleast_1d(np.asarray(ref, dtype=float))
+    if not (np.isfinite(ours).all() and np.allclose(ours, ref, rtol=RCOND_RTOL, atol=0.0)):
+        fail(f"{label}: rcond {ours.tolist()} on cuda, {ref.tolist()} on cpu")
+
+
+def last_options_phase(card, workers=4):
+    """Phase 9: BoxReduced and Optimizing, the rcond estimate, MINRES and
+    GMRES and collect_path on the card, each held against the port's CPU
+    run of the same configuration, which worker processes compute while the
+    card runs.  Returns the launches of the card runs."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import SolverStatus
+    from pygradflow_torch.util import HOST_READS
+
+    totals = dict.fromkeys(("rl", "ll", "rl_batched"), 0)
+    only = {
+        "(a) rcond": {"rl"}, "(a) rcond ll": {"ll"}, "(b) collect_path": {"rl"}, "(e) fleet rcond": {"rl_batched"},
+    }
+    beside = {
+        "(a) rcond": ("pendulum", LAST_N), "(a) rcond ll": ("pendulum", LAST_LL_N),
+        "(b) collect_path": ("pendulum", LAST_N), "(c) MINRES": ("pendulum", LAST_N),
+        "(d) Optimizing": "headline", "(d) BoxReduced": "headline", "(e) fleet rcond": ("fleet", FLEET_N),
+    }
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        pending = {name: pool.apply_async(_last_reference, (name,)) for name in LAST_RUNS[::-1]}
+        for name in LAST_RUNS:
+            problem, params, x0, batched = _last_config(name)
+            HOST_READS.clear()
+            res, used, wall = _solve_once(problem, params, "cuda", x0, batched=batched)
+            reads = dict(HOST_READS)
+            _expect_launches(f"last {name}", used, only.get(name, set()))
+            ref = pending[name].get(timeout=900)
+            label = f"last {name}"
+            if batched:
+                iters = int(res.iterations.max())
+                dx = _check_lanes(label, res, _as_result(ref, True), slice(0, CPU_LANES))
+                optimal = int((res.status == int(SolverStatus.Optimal)).sum())
+                if optimal != x0.shape[0] or not torch.isfinite(res.x).all():
+                    fail(f"{label}: {optimal}/{x0.shape[0]} lanes Optimal")
+                if params.report_rcond:
+                    _rcond_close(label, res.rcond[:CPU_LANES].cpu().numpy(), ref["rcond"])
+                counts = (f"{optimal}/{x0.shape[0]} Optimal, lockstep iterations {iters}, lanes 0-{CPU_LANES - 1} "
+                          f"{res.iterations[:CPU_LANES].tolist()}/{res.accepted_steps[:CPU_LANES].tolist()}")
+            else:
+                iters = res.iterations
+                dx = _hold(label, res, _as_result(ref, False), "cpu")
+                counts = f"{res.status.name} {res.iterations}/{res.num_accepted_steps}"
+                if params.report_rcond:
+                    _rcond_close(label, res.final_rcond, ref["rcond"])
+                    N = beside[name][1]
+                    if sum(used.values()) != SLICE_LAUNCHES[N]:
+                        fail(f"{label}: launches {used}, phase 4 launched {SLICE_LAUNCHES[N]} at N={N}")
+                    counts += f" rcond={res.final_rcond:.6e} (cpu {ref['rcond']:.6e})"
+                if params.collect_path:
+                    path, times = res.path.cpu().numpy(), res.model_times.cpu().numpy()
+                    if path.shape != (problem.num_vars + problem.num_cons, res.num_accepted_steps + 1):
+                        fail(f"{label}: path of shape {path.shape}")
+                    if not (np.allclose(path, ref["path"], rtol=X_TOL, atol=X_TOL)
+                            and np.allclose(times, ref["model_times"], rtol=X_TOL, atol=X_TOL)):
+                        fail(f"{label}: path or model times differ from the cpu run")
+                    counts += f" path {path.shape[1]} columns, t_end={times[-1]:.6e}"
+            launches = sum(used.values())
+            extra = ""
+            if name in beside:
+                extra = f" (phase {4 if beside[name][0] == 'pendulum' else 5 if beside[name][0] == 'fleet' else 6}: "
+                extra += f"{PHASE_MS[beside[name]]:.2f} ms/iter)" if beside[name] in PHASE_MS else "not run)"
+            read_text = " ".join(f"{k}={v} ({v / iters:.2f}/iter)" for k, v in reads.items())
+            print(
+                f"{label}: {counts} launches={used} launches/iter={launches / iters:.2f} |x-x_cpu|={dx:.3e} "
+                f"wall={wall:.3f} s ms/iter={1e3 * wall / iters:.2f}{extra} host reads {read_text or 'none'} "
+                f"cpu_wall={ref['wall']:.3f} s [{card}]",
+                flush=True,
+            )
+            for k in totals:
+                totals[k] += used[k]
+    print(f"last options launches: {totals}", flush=True)
+    return totals
+
+
 def main():
     try:
         import torch
@@ -1014,6 +1221,8 @@ def main():
     for key, count in options_launches.items():
         launches[key] += count
     records["rl"]["cases"].append(qp_case)
+    for key, count in last_options_phase(card).items():
+        launches[key] += count
 
     summary = []
     for key, (name, replaces) in KERNELS.items():

@@ -19,6 +19,11 @@ Each tier takes one matrix (n, n) or a lane stack (B, n, n):
   mixed-precision tier: a packed f32 LDL^T from the CUDA kernels of
   ``csrc/ldlt.cu`` (their plain PyTorch versions for CPU tensors), checked
   by a residual probe, then f64 iterative refinement.
+- ``LinearSolverType.MINRES`` (symmetric only) and ``LinearSolverType.GMRES``:
+  the iterative solvers of ``minres.py`` and ``gmres.py`` on the assembled
+  matrix, with the warm start a step solver passes as ``initial_sol``.
+
+Every ``solve`` takes ``initial_sol``; the direct tiers ignore it.
 """
 
 from typing import Any, Callable, NamedTuple, Optional
@@ -36,7 +41,7 @@ class LinearSolver(NamedTuple):
     """Bundle of factor/solve closures for one backend."""
 
     factor: Callable[[Any], Any]
-    solve: Callable[..., Any]  # (fact, rhs) -> sol
+    solve: Callable[..., Any]  # (fact, rhs, initial_sol=None) -> sol
     solve_trans: Callable[[Any, Any], Any]
     num_neg_eigvals: Optional[Callable[[Any], Any]]
     name: str
@@ -111,7 +116,7 @@ def _pallas_ldlt() -> LinearSolver:
         packed = kernel(mat.to(torch.float32).contiguous())
         return (guard_factor(packed, mat), mat)
 
-    def solve(fact, rhs, iters: int = 3):
+    def solve(fact, rhs, initial_sol=None, iters: int = 3):
         """``iters=0`` skips the f64 refinement (the raw f32 back-solve),
         for callers that refine around this solve themselves (the
         mixed-precision Schur saddle refinement)."""
@@ -128,7 +133,10 @@ def _pallas_ldlt() -> LinearSolver:
 def _lu() -> LinearSolver:
     from .plu import plu_factor, plu_solve, plu_solve_trans
 
-    return LinearSolver(plu_factor, plu_solve, plu_solve_trans, None, "lu")
+    def solve(fact, rhs, initial_sol=None):
+        return plu_solve(fact, rhs)
+
+    return LinearSolver(plu_factor, solve, plu_solve_trans, None, "lu")
 
 
 def _cholesky() -> LinearSolver:
@@ -140,7 +148,7 @@ def _cholesky() -> LinearSolver:
         lower, info = torch.linalg.cholesky_ex(mat)
         return torch.where((info != 0)[..., None, None], float("nan"), lower)
 
-    def solve(fact, rhs):
+    def solve(fact, rhs, initial_sol=None):
         return torch.cholesky_solve(rhs[..., None], fact)[..., 0]
 
     def num_neg(fact):
@@ -161,13 +169,32 @@ def _ldlt() -> LinearSolver:
             return ldlt_factor_blocked(mat)
         return ldlt_factor(mat)
 
-    return LinearSolver(factor, ldlt_solve, ldlt_solve, ldlt_num_neg_eigvals, "ldlt")
+    def solve(fact, rhs, initial_sol=None):
+        return ldlt_solve(fact, rhs)
+
+    return LinearSolver(factor, solve, solve, ldlt_num_neg_eigvals, "ldlt")
 
 
-_ROADMAP = {
-    LinearSolverType.MINRES: "A8",
-    LinearSolverType.GMRES: "A8",
-}
+def _minres() -> LinearSolver:
+    from .minres import minres
+
+    def solve(mat, rhs, initial_sol=None):
+        return minres(mat, rhs, x0=initial_sol)
+
+    return LinearSolver(lambda mat: mat, solve, solve, None, "minres")
+
+
+def _gmres() -> LinearSolver:
+    """``rtol = atol = 1e-12``, as the JAX package passes them."""
+    from .gmres import gmres
+
+    def solve(mat, rhs, initial_sol=None):
+        return gmres(mat, rhs, x0=initial_sol)
+
+    def solve_trans(mat, rhs):
+        return gmres(mat.mT, rhs)
+
+    return LinearSolver(lambda mat: mat, solve, solve_trans, None, "gmres")
 
 
 def linear_solver(solver_type: LinearSolverType, symmetric: bool = False) -> LinearSolver:
@@ -180,9 +207,10 @@ def linear_solver(solver_type: LinearSolverType, symmetric: bool = False) -> Lin
         return _ldlt()
     if solver_type == LinearSolverType.PallasLDLT:
         return _pallas_ldlt()
-    if solver_type in _ROADMAP:
-        raise NotImplementedError(
-            f"linear solver {solver_type.name} is not yet ported "
-            f"(ROADMAP {_ROADMAP[solver_type]})"
-        )
+    if solver_type == LinearSolverType.MINRES:
+        if not symmetric:
+            raise LinearSolverError("MINRES requires a symmetric matrix")
+        return _minres()
+    if solver_type == LinearSolverType.GMRES:
+        return _gmres()
     raise LinearSolverError(f"Unknown linear solver type {solver_type}")

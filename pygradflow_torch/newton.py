@@ -74,8 +74,8 @@ def _make_func(cfg: NewtonCfg, orig: Iterate, lamb):
     return impl.make_step_func(orig, lamb, cfg.lb, cfg.ub, scaled=cfg.ssdef.scaled)
 
 
-def _result(cfg: NewtonCfg, it: Iterate, dx, dy, active) -> StepResult:
-    return make_step_result(it, dx, dy, cfg.lb, cfg.ub, active)
+def _result(cfg: NewtonCfg, it: Iterate, dx, dy, active, rcond=float("nan")) -> StepResult:
+    return make_step_result(it, dx, dy, cfg.lb, cfg.ub, active, rcond)
 
 
 def _simplified(cfg: NewtonCfg):
@@ -88,7 +88,7 @@ def _simplified(cfg: NewtonCfg):
     def step(carry, cur: Iterate, counters: Counters):
         func, fact, rho = carry
         dx, dy = cfg.ssdef.solve(fact, func, cur, rho)
-        return _result(cfg, cur, dx, dy, fact.active), carry, counters
+        return _result(cfg, cur, dx, dy, fact.active, fact.rcond), carry, counters
 
     return init, step
 
@@ -102,7 +102,7 @@ def _full(cfg: NewtonCfg):
         active = impl.compute_active_set(func, cur, rho, tau, fns=cfg.fns)
         fact, counters = _factorize(cfg, func, cur, active, rho, counters)
         dx, dy = cfg.ssdef.solve(fact, func, cur, rho)
-        return _result(cfg, cur, dx, dy, active), carry, counters
+        return _result(cfg, cur, dx, dy, active, fact.rcond), carry, counters
 
     return init, step
 
@@ -124,7 +124,7 @@ def _active_set(cfg: NewtonCfg):
         else:
             fact = cfg.ssdef.factor(func, H, orig.cons_jac, active, rho)
         dx, dy = cfg.ssdef.solve(fact, func, cur, rho)
-        return _result(cfg, cur, dx, dy, active), carry, counters
+        return _result(cfg, cur, dx, dy, active, fact.rcond), carry, counters
 
     return init, step
 
@@ -184,7 +184,7 @@ def _globalized(cfg: NewtonCfg):
         # (the reference raises "Line search failed to converge",
         # newton.py:297); the step is applied at the *origin* (newton.py:299)
         dx = torch.where(lanes(done, 1), dx, float("nan"))
-        return _result(cfg, orig, dx, dy, active), carry, counters
+        return _result(cfg, orig, dx, dy, active, fact.rcond), carry, counters
 
     return init, step
 
@@ -228,7 +228,7 @@ def _fixed_active_set(cfg: NewtonCfg):
         func, active, rho = carry
         fact, counters = _factorize(cfg, func, cur, active, rho, counters)
         dx, dy = cfg.ssdef.solve(fact, func, cur, rho)
-        return _result(cfg, cur, dx, dy, active), carry, counters
+        return _result(cfg, cur, dx, dy, active, fact.rcond), carry, counters
 
     return init, step
 

@@ -9,10 +9,14 @@ decision is a per-lane ``torch.where``.  ``torch.func.vmap`` serves only the
 problem's derivatives (``eval.lane_fns``).  Lanes are independent: a lane's
 trajectory does not depend on the others or on the batch width.
 
-Each iteration reads one value on the host, whether any lane still runs;
-Exact step control and Globalized Newton add one per inner step, whether
-any lane still iterates, where the JAX package's ``lax.while_loop`` decides
-on the device.  A lane that has left such a loop keeps its values.
+Each iteration reads one value on the host, whether any lane still runs.
+Exact step control and Globalized Newton run their inner loops to the
+limit with no host read.  The inner loops of BoxReduced and Optimizing
+(the box solver's iterations, the interior point's), MINRES's iterations
+and GMRES's restarts end when no lane still runs, read on the host once
+per iteration (MINRES: every ``minres.CHECK_EVERY``), where the JAX
+package's vmapped ``lax.while_loop`` decides on the device.  A lane that
+has left such a loop keeps its values bit for bit.
 A lane whose status is terminal is frozen: it keeps computing in lockstep,
 and its result is discarded.  ``compact`` harvests terminated lanes at
 chunk boundaries and re-packs the running remainder into power-of-four
@@ -91,6 +95,7 @@ class BatchResult(NamedTuple):
     cons_violation: Any
     stat_res: Any
     counters: Counters  # (B,) evaluation counts per component
+    rcond: Any = None  # (B,) estimate of each lane's last step; None when off
 
     @property
     def success(self):
@@ -109,6 +114,7 @@ class LaneState(NamedTuple):
     path_dist: Any
     status: Any
     counters: Counters
+    rcond: Any
 
 
 class LaneLoop:
@@ -162,6 +168,7 @@ class LaneLoop:
             path_dist=full(0.0),
             status=full(RUNNING, torch.int64),
             counters=counters,
+            rcond=full(float("nan")),
         )
         return state._replace(status=self.check_terminate(state))
 
@@ -200,6 +207,7 @@ class LaneLoop:
         accept = ctrl.accepted & pres.accept
         rho_n = torch.where(accept, pres.rho, state.rho)
         lambda_limit = ctrl.lamb >= self.params.lamb_max
+        rcond = ctrl.rcond if torch.is_tensor(ctrl.rcond) else torch.full_like(state.rcond, ctrl.rcond)
         return LaneState(
             it=select(accept, next_it, state.it),
             lamb=ctrl.lamb,
@@ -212,6 +220,7 @@ class LaneLoop:
             path_dist=state.path_dist + torch.where(accept, step_norm, 0.0),
             status=torch.where(lambda_limit, int(SolverStatus.LambdaLimit), RUNNING),
             counters=ctrl.counters,
+            rcond=rcond,
         )
 
     def body(self, state: LaneState) -> LaneState:
@@ -247,6 +256,7 @@ class LaneLoop:
             cons_violation=cons_violation(it),
             stat_res=stat_res(it, self.lb, self.ub, params.active_tol, self.fns),
             counters=state.counters,
+            rcond=state.rcond if params.report_rcond else None,
         )
 
 
@@ -284,6 +294,8 @@ class BatchedSolver:
             params = Params()
         if params.display:
             raise ValueError("display is not supported in batched mode")
+        if params.collect_path:
+            raise ValueError("collect_path is not supported in batched mode")
         self.orig_problem = problem
         self.params = params
         self.device = _resolve_device(device)

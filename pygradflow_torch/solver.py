@@ -7,7 +7,10 @@ same decisions in the same order: termination in the reference's priority
 (``check_terminate``), then one step with its penalty update and veto
 (``run_iteration``).  Scalars of the state are Python numbers, so each
 iteration synchronises with the device a few times; capturing the loop in
-a CUDA graph is later work.
+a CUDA graph is later work.  The rcond estimate of the last step stays on
+the device until the solve ends.  With ``params.collect_path`` the
+accepted iterates go into a ring of ``path_capacity`` columns on the
+solver's device, with model times ``t += 1/lambda``.
 """
 
 from typing import Any, NamedTuple, Optional
@@ -54,12 +57,14 @@ class LoopState(NamedTuple):
     # (first_x, first_y, cand_x, cand_y) of the first candidate rejected for
     # non-finite values, kept for the eval diagnosis (params.validate_input)
     eval_fail: Optional[tuple]
+    rcond: Any = float("nan")  # estimate of the most recent step
+    # () or (buffer (cap, n+m), times (cap,), length): params.collect_path
+    path: tuple = ()
 
 
 def _check_supported(params: Params) -> None:
     unported = [
         (params.precision != Precision.Double, "Precision.Single", "A7"),
-        (params.collect_path, "collect_path", "A6"),
         (params.display, "the live display (params.display)", "A12"),
         (params.deriv_check != DerivCheck.NoCheck, "derivative checks", "A12"),
     ]
@@ -95,6 +100,12 @@ class SolveLoop:
 
     def init_state(self, x, y) -> LoopState:
         rho0, pstate0 = self.penalty_initial()
+        path = ()
+        if self.params.collect_path:
+            cap = self.params.path_capacity
+            buf = torch.zeros((cap, self.n + self.m), dtype=x.dtype, device=x.device)
+            buf[0] = torch.cat([x, y])
+            path = (buf, torch.zeros(cap, dtype=x.dtype, device=x.device), 1)
         return LoopState(
             it=evaluate_iterate(self.fns, x, y),
             lamb=float(self.params.lamb_init),
@@ -108,6 +119,7 @@ class SolveLoop:
             status=RUNNING,
             counters=Counters.zero().add(**iterate_eval_counts(self.m)),
             eval_fail=None,
+            path=path,
         )
 
     def check_terminate(self, state: LoopState) -> int:
@@ -171,6 +183,13 @@ class SolveLoop:
                 accept,
             )
 
+        path = state.path
+        if path and accept and path[2] < self.params.path_capacity:
+            buf, times, length = path
+            buf[length] = torch.cat([next_it.x, next_it.y])
+            times[length] = times[length - 1] + 1.0 / ctrl.lamb
+            path = (buf, times, length + 1)
+
         # lambda blow-up (the reference raises, solver.py:323-326)
         status = int(SolverStatus.LambdaLimit) if ctrl.lamb >= self.params.lamb_max else RUNNING
         return LoopState(
@@ -186,6 +205,8 @@ class SolveLoop:
             status=status,
             counters=ctrl.counters,
             eval_fail=eval_fail,
+            rcond=ctrl.rcond,
+            path=path,
         )
 
     def run(self, state: LoopState, timer: Timer) -> LoopState:
@@ -320,7 +341,7 @@ class Solver:
             num_evals=num_evals,
         )
 
-        return SolverResult(
+        result = SolverResult(
             self.problem,
             x_r,
             y_r,
@@ -335,8 +356,21 @@ class Solver:
             final_cons_violation=final_cons_violation,
             num_penalty_changes=state.num_penalty_changes,
             num_evals=num_evals,
-            final_rcond=float("nan"),
+            final_rcond=float(state.rcond),
         )
+        if params.collect_path:
+            buf, times, length = state.path
+            # the initial point and one column per accepted step, unless the
+            # ring stopped at its capacity (the reference path is unbounded)
+            if state.accepted_steps + 1 > length:
+                logger.warning(
+                    "Trajectory truncated: %d accepted steps exceed path_capacity=%d; "
+                    "raise Params.path_capacity to record the full path",
+                    state.accepted_steps,
+                    params.path_capacity,
+                )
+            result._set_path(buf[:length].T, times[:length])
+        return result
 
     def _print_result(
         self,

@@ -2,7 +2,8 @@
 (counterpart of ``pygradflow_tpu/step/control.py``).
 
 The controllers DistanceRatio (the default), ResiduumRatio, Exact and
-Fixed, each in two forms.  For one instance, where the JAX package computes
+Fixed, each in two forms; BoxReduced (``box_control.py``) and Optimizing
+(``opti_control.py``) likewise.  For one instance, where the JAX package computes
 both branches under ``lax.cond``/``jnp.where`` and masks, this eager port
 branches in Python on the same conditions in the same order, which takes
 the same decisions.  For a lane stack (``lanes``) it does what the JAX body
@@ -12,8 +13,7 @@ Exact's inner Newton loop stops for one instance when it converges or
 fails (one host read per inner step).  On a lane stack it reads nothing on
 the host: it runs all ``newton_max_it`` steps, where the JAX package's
 ``lax.while_loop`` stops once no lane iterates, and a lane that has
-finished keeps its iterate, counters and first candidate.  BoxReduced and
-Optimizing are ROADMAP A10.
+finished keeps its iterate, counters and first candidate.
 
 The active-set parameter tau (``compute_tau``) follows the reference
 heuristics (``step/newton_control.py:40-88``): none for Standard, a given
@@ -56,7 +56,7 @@ class ControlResult(NamedTuple):
     error_sum: float  # PI integral state
     active_set: Any  # bool (n,) from the last Newton step
     counters: Counters
-    rcond: float  # NaN: condition estimates are not ported (ROADMAP A4)
+    rcond: Any  # estimate from the last factorization (a float NaN when off)
     # (x, y) of the first evaluated inner candidate, for the eval diagnosis
     first_point: Any
 
@@ -242,6 +242,9 @@ def _distance_ratio_lanes(cfg: ControlCfg):
         lamb_full = torch.where(zero2, lamb, lamb_full)
         es_full = torch.where(zero2, error_sum, es_full)
 
+        rcond = step1.rcond
+        if torch.is_tensor(rcond):
+            rcond = torch.where(early, step1.rcond, step2.rcond)
         return ControlResult(
             iterate=select(early, mid_it, fin_it),
             lamb=torch.where(early, lamb_early, lamb_full),
@@ -249,7 +252,7 @@ def _distance_ratio_lanes(cfg: ControlCfg):
             error_sum=torch.where(early, error_sum, es_full),
             active_set=step1.active_set,
             counters=select(early, counters, counters2),
-            rcond=float("nan"),
+            rcond=rcond,
             first_point=(mid_it.x, mid_it.y),
         )
 
@@ -284,7 +287,7 @@ def _residuum_ratio(cfg: ControlCfg, lanes: bool):
             lamb_n, accepted, es_n = torch.stack([lamb_n, accepted.to(lamb_n.dtype), es_n]).tolist()
             accepted = bool(accepted)
         return ControlResult(
-            mid_it, lamb_n, accepted, es_n, step1.active_set, counters, float("nan"), (mid_it.x, mid_it.y)
+            mid_it, lamb_n, accepted, es_n, step1.active_set, counters, step1.rcond, (mid_it.x, mid_it.y)
         )
 
     return step
@@ -302,6 +305,7 @@ def _exact(cfg: ControlCfg, lanes: bool):
         val = impl.value_norm(func, orig, rho, fns=cfg.fns)
         state = torch.zeros_like(val, dtype=torch.int64)  # 0 iterating, 1 converged, 2 failed
         it, active, first = orig, torch.zeros_like(orig.x, dtype=torch.bool), (orig.x, orig.y)
+        rcond = float("nan")
 
         for i in range(params.newton_max_it):
             running = state == 0
@@ -322,8 +326,11 @@ def _exact(cfg: ControlCfg, lanes: bool):
                 active = select(running, step_i.active_set, active)
                 val = torch.where(running, next_val, val)
                 state = torch.where(running, state_n, state)
+                if torch.is_tensor(step_i.rcond):
+                    rcond = torch.where(running, step_i.rcond, rcond)
             else:
                 it, counters, active, val, state = next_it, counters_n, step_i.active_set, next_val, state_n
+                rcond = step_i.rcond
 
         success = state == 1
         if lanes:
@@ -331,7 +338,7 @@ def _exact(cfg: ControlCfg, lanes: bool):
         else:
             success = bool(success)
             lamb_n = 0.5 * lamb if success else 2.0 * lamb
-        return ControlResult(it, lamb_n, success, error_sum, active, counters, float("nan"), first)
+        return ControlResult(it, lamb_n, success, error_sum, active, counters, rcond, first)
 
     return step
 
@@ -350,7 +357,7 @@ def _fixed(cfg: ControlCfg, lanes: bool):
             lamb_n = torch.full_like(lamb, params.lamb_init)
             accepted = torch.ones_like(lamb, dtype=torch.bool)
         return ControlResult(
-            mid_it, lamb_n, accepted, error_sum, step1.active_set, counters, float("nan"), (mid_it.x, mid_it.y)
+            mid_it, lamb_n, accepted, error_sum, step1.active_set, counters, step1.rcond, (mid_it.x, mid_it.y)
         )
 
     return step
@@ -368,8 +375,14 @@ def make_controller(cfg: ControlCfg, lanes: bool = False):
         return _exact(cfg, lanes)
     if sct == StepControlType.Fixed:
         return _fixed(cfg, lanes)
-    if sct in (StepControlType.BoxReduced, StepControlType.Optimizing):
-        raise NotImplementedError(f"step control {sct.name} is not yet ported (ROADMAP A10)")
+    if sct == StepControlType.BoxReduced:
+        from .box_control import make_box_reduced
+
+        return make_box_reduced(cfg, lanes)
+    if sct == StepControlType.Optimizing:
+        from .opti_control import make_optimizing
+
+        return make_optimizing(cfg, lanes)
     raise ValueError(f"Unknown step control type {sct}")
 
 

@@ -15,7 +15,12 @@ The formulations (lambda = 1/dt, fact = 1/(1 + lambda rho)), each a dense
   test (m negative eigenvalues).
 
 Standard and Asymmetric factor a non-symmetric matrix with the configured
-tier, the PallasLDLT tier included, as the JAX package does.
+tier, the PallasLDLT tier included, as the JAX package does.  With
+``params.report_rcond`` each of the three estimates the reciprocal
+condition number of its matrix from the factor (``cond_estimate.py``): on
+the PallasLDLT tier the estimate's solves are the refined f64 solves around
+the one f32 factor, so it adds solves and no factor.  The Schur tiers
+report NaN, as in the JAX package.
 ``params.step_solver`` replaces all of this by a user's ``StepSolverDef``.
 
 Assembly and solve serve one instance and a lane stack alike: with a
@@ -48,10 +53,10 @@ class StepResult(NamedTuple):
     dy: Any
     diff: Any
     active_set: Any
-    rcond: Any  # NaN: condition estimates are not ported (ROADMAP A4)
+    rcond: Any  # reciprocal condition estimate (a float NaN when off)
 
 
-def make_step_result(it: Iterate, dx, dy, lb, ub, active_set) -> StepResult:
+def make_step_result(it: Iterate, dx, dy, lb, ub, active_set, rcond=float("nan")) -> StepResult:
     xn = it.x - dx
     at_lb = xn < lb
     at_ub = xn > ub
@@ -65,7 +70,7 @@ def make_step_result(it: Iterate, dx, dy, lb, ub, active_set) -> StepResult:
         dy=dy,
         diff=norm_mult(dxc, dy),
         active_set=active_set,
-        rcond=float("nan"),
+        rcond=rcond,
     )
 
 
@@ -77,6 +82,17 @@ class Factorization(NamedTuple):
     hess_shifted: Any  # H + lambda I, for the rhs condensation
     jac: Any
     inertia_ok: Any  # None (not tested) or bool per lane; False forces a NaN step
+    rcond: Any = float("nan")  # estimate of params.report_rcond, per lane
+
+
+def _maybe_rcond(lin: LinearSolver, report: bool, mat, fact):
+    """The Dixon estimate of the assembled matrix when asked for (reference
+    ``step/solver/step_solver.py:100-112``)."""
+    if not report:
+        return float("nan")
+    from .cond_estimate import estimate_rcond
+
+    return estimate_rcond(mat, lambda r: lin.solve(fact, r), lambda r: lin.solve_trans(fact, r))
 
 
 class StepSolverDef(NamedTuple):
@@ -133,21 +149,24 @@ def step_solver_def(params: Params, fns=None) -> StepSolverDef:
                 schur_lin, fns, params.schur_block_size, params.schur_dual_block_size
             )
         return schur_def(schur_lin, params.schur_block_size, params.schur_dual_block_size)
-    if params.report_rcond:
-        raise NotImplementedError("report_rcond is not yet ported (ROADMAP A4)")
     symmetric = solver_type == StepSolverType.Symmetric
     lin = linear_solver(params.linear_solver_type, symmetric=symmetric)
+    report = params.report_rcond
     if solver_type == StepSolverType.Standard:
-        return _standard_def(lin)
+        return _standard_def(lin, report)
     if symmetric:
-        return _symmetric_def(lin, params.inertia_correction)
-    return _asymmetric_def(lin)  # Asymmetric and Extended
+        return _symmetric_def(lin, params.inertia_correction, report)
+    return _asymmetric_def(lin, report)  # Asymmetric and Extended
 
 
-def _standard_def(lin: LinearSolver) -> StepSolverDef:
+def _standard_def(lin: LinearSolver, report_rcond: bool = False) -> StepSolverDef:
     def factor(func: impl.StepFunc, H, J, active, rho):
         mat = impl.deriv(func, J, H, active)
-        return Factorization(fact=lin.factor(mat), active=active, hess_shifted=H, jac=J, inertia_ok=None)
+        fact = lin.factor(mat)
+        return Factorization(
+            fact=fact, active=active, hess_shifted=H, jac=J, inertia_ok=None,
+            rcond=_maybe_rcond(lin, report_rcond, mat, fact),
+        )
 
     def solve(f: Factorization, func: impl.StepFunc, it: Iterate, rho):
         rx, ry = impl.value_at(func, it, rho, f.active)
@@ -164,7 +183,7 @@ def _standard_def(lin: LinearSolver) -> StepSolverDef:
     )
 
 
-def _asymmetric_def(lin: LinearSolver) -> StepSolverDef:
+def _asymmetric_def(lin: LinearSolver, report_rcond: bool = False) -> StepSolverDef:
     def factor(func: impl.StepFunc, H, J, active, rho):
         lamb = func.lamb
         n = H.shape[-1]
@@ -180,8 +199,10 @@ def _asymmetric_def(lin: LinearSolver) -> StepSolverDef:
         mat = torch.cat(
             [torch.cat([M11, M12], dim=-1), torch.cat([J, M22], dim=-1)], dim=-2
         )
+        fact = lin.factor(mat)
         return Factorization(
-            fact=lin.factor(mat), active=active, hess_shifted=Hl, jac=J, inertia_ok=None
+            fact=fact, active=active, hess_shifted=Hl, jac=J, inertia_ok=None,
+            rcond=_maybe_rcond(lin, report_rcond, mat, fact),
         )
 
     def solve(f: Factorization, func: impl.StepFunc, it: Iterate, rho):
@@ -192,7 +213,8 @@ def _asymmetric_def(lin: LinearSolver) -> StepSolverDef:
         rx, ry = impl.value_at(func, it, rho, f.active)
         n = rx.shape[-1]
         var_rhs = torch.where(f.active, lanes(dt, 1) * rx, rx)
-        sol = lin.solve(f.fact, torch.cat([var_rhs, lanes(pfact, 1) * ry], dim=-1))
+        sol0 = torch.cat([torch.where(f.active, lanes(dt, 1) * rx, 0.0), torch.zeros_like(ry)], dim=-1)
+        sol = lin.solve(f.fact, torch.cat([var_rhs, lanes(pfact, 1) * ry], dim=-1), initial_sol=sol0)
         dx = sol[..., :n]
         dy = lanes(pfact, 1) * (sol[..., n:] - lanes(rho, 1) * ry)
         return dx, dy
@@ -206,7 +228,7 @@ def _asymmetric_def(lin: LinearSolver) -> StepSolverDef:
     )
 
 
-def _symmetric_def(lin: LinearSolver, inertia_correction: bool) -> StepSolverDef:
+def _symmetric_def(lin: LinearSolver, inertia_correction: bool, report_rcond: bool = False) -> StepSolverDef:
     def factor(func: impl.StepFunc, H, J, active, rho):
         lamb = func.lamb
         n = H.shape[-1]
@@ -238,7 +260,8 @@ def _symmetric_def(lin: LinearSolver, inertia_correction: bool) -> StepSolverDef
             inertia_ok = lin.num_neg_eigvals(factored) == m
 
         return Factorization(
-            fact=factored, active=active, hess_shifted=Hl, jac=J, inertia_ok=inertia_ok
+            fact=factored, active=active, hess_shifted=Hl, jac=J, inertia_ok=inertia_ok,
+            rcond=_maybe_rcond(lin, report_rcond, mat, factored),
         )
 
     def solve(f: Factorization, func: impl.StepFunc, it: Iterate, rho):

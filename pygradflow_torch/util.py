@@ -4,7 +4,47 @@ Every helper acts on the last axis, so it serves one instance (vectors
 (n,)) and a lane stack (B, n) alike.
 """
 
+from collections import Counter
+
 import torch
+
+HOST_READS = Counter()
+"""Host reads of the inner loops that stop when no lane still runs (the
+box solver, the interior point, MINRES and GMRES), one count per read,
+keyed by loop."""
+
+
+def any_running(running, loop: str) -> bool:
+    """Whether any lane (or the one instance) still runs: one host read,
+    counted in ``HOST_READS[loop]``."""
+    HOST_READS[loop] += 1
+    return bool(running.any())
+
+
+def cuda_graphed(fn, example):
+    """``fn``, a function of a tuple of CUDA tensors that returns a tuple of
+    tensors of the same shapes and reads nothing on the host, captured once
+    as a CUDA graph.  The callable returned copies its arguments into the
+    graph's inputs, replays the graph and returns its output tensors, which
+    the next replay overwrites."""
+    inputs = tuple(t.clone() for t in example)
+    stream = torch.cuda.Stream(device=inputs[0].device)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(*inputs)  # warm-up: cuBLAS handles and workspaces outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outputs = fn(*inputs)
+
+    def replay(*args):
+        for dst, src in zip(inputs, args):
+            if dst is not src:
+                dst.copy_(src)
+        graph.replay()
+        return outputs
+
+    return replay
 
 
 def lanes(s, k: int):

@@ -252,3 +252,61 @@ def test_full_newton_pendulum_on_cuda_matches_cpu(cuda):
     assert launched["rl"] > res.iterations and launched["ll"] == launched["rl_batched"] == 0
     assert (res.status, res.iterations, res.num_accepted_steps) == (ref.status, ref.iterations, ref.num_accepted_steps)
     np.testing.assert_allclose(res.x.cpu().numpy(), ref.x.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "lanes"])
+def test_minres_on_cuda_is_independent_of_check_every(cuda, batched):
+    """MINRES reads ``done`` on the host every iteration or every 16: the
+    same bits on the card, and the same solution as on the CPU to 1e-10."""
+    from pygradflow_torch.linalg.minres import minres
+
+    rng = np.random.default_rng(3)
+    q = np.linalg.qr(rng.standard_normal((3, 60, 60)))[0]
+    eig = rng.uniform(1.0, 10.0, (3, 60)) * np.where(np.arange(60) % 3 == 0, -1.0, 1.0)
+    a = np.einsum("bij,bj,bkj->bik", q, eig, q)
+    b = rng.standard_normal((3, 60))
+    a_d, b_d = torch.tensor(a, device=cuda), torch.tensor(b, device=cuda)
+    if not batched:
+        a, b, a_d, b_d = a[0], b[0], a_d[0], b_d[0]
+    every = minres(a_d, b_d, check_every=1)
+    assert torch.equal(every, minres(a_d, b_d, check_every=16))
+    cpu = minres(torch.tensor(a), torch.tensor(b))
+    np.testing.assert_allclose(every.cpu().numpy(), cpu.numpy(), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("N,key", [(16, None), (128, "rl")])
+def test_rcond_on_cuda_equals_cpu(cuda, N, key):
+    """``report_rcond`` on the pendulum: the same probes on the card and on
+    the CPU, so the same counts and ``final_rcond`` to 1e-8 relative; at
+    N = 128 the estimate's solves add no launch of B1'."""
+    problem = PendulumControl(N=N)
+    x0 = problem.x0_trajectory()
+    params = Params(linear_solver_type=LinearSolverType.PallasLDLT, iteration_limit=3000, validate_input=False,
+                    report_rcond=True)
+    cpu = Solver(problem, params, device="cpu").solve(torch.tensor(x0))
+    before = dict(lk.LAUNCHES)
+    card = Solver(problem, params, device=cuda).solve(torch.tensor(x0, device=cuda))
+    assert (card.status, card.iterations, card.num_accepted_steps) == (cpu.status, cpu.iterations, cpu.num_accepted_steps)
+    np.testing.assert_allclose(card.final_rcond, cpu.final_rcond, rtol=1e-8)
+    if key is not None:
+        assert lk.LAUNCHES[key] - before[key] == card.iterations
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "lanes"])
+def test_gmres_cuda_graph_equals_eager(cuda, batched, monkeypatch):
+    """GMRES replays its restarts as a CUDA graph: the same bits as the same
+    restarts launched one kernel at a time, and the CPU's solution to
+    1e-10."""
+    from pygradflow_torch.linalg import gmres as gmres_module
+
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((3, 80, 80)) + 2.0 * np.sqrt(80) * np.eye(80) * np.array([1.0, 0.3, 0.1])[:, None, None]
+    b = rng.standard_normal((3, 80))
+    a_d, b_d = torch.tensor(a, device=cuda), torch.tensor(b, device=cuda)
+    if not batched:
+        a, b, a_d, b_d = a[2], b[2], a_d[2], b_d[2]
+    graphed = gmres_module.gmres(a_d, b_d)
+    monkeypatch.setattr(gmres_module, "cuda_graphed", lambda fn, example: fn)
+    assert torch.equal(graphed, gmres_module.gmres(a_d, b_d))
+    cpu = gmres_module.gmres(torch.tensor(a), torch.tensor(b))
+    np.testing.assert_allclose(graphed.cpu().numpy(), cpu.numpy(), rtol=1e-10, atol=1e-12)

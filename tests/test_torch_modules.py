@@ -124,7 +124,7 @@ def _exact_torch_solver():
     """f64 dense solve, a stand-in that isolates the assembly and the
     condensed right-hand side from the mixed-precision tier."""
 
-    def solve(mat, rhs):
+    def solve(mat, rhs, initial_sol=None):
         return torch.linalg.solve(mat, rhs)
 
     return LinearSolver(lambda mat: mat, solve, solve, None, "exact")
@@ -206,20 +206,52 @@ def test_import_leaves_jax_out():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        (dict(ANCHOR, report_rcond=True), "A4"),
-        (dict(ANCHOR, step_control_type="BoxReduced"), "A10"),
-        (dict(ANCHOR, step_control_type="Optimizing"), "A10"),
         (dict(ANCHOR, display=True), "A12"),
         (dict(ANCHOR, deriv_check="CheckFirst"), "A12"),
-        (dict(linear_solver_type="MINRES"), "A8"),
-        (dict(ANCHOR, collect_path=True), "A6"),
+        (dict(ANCHOR, deriv_check="CheckAll"), "A12"),
         (dict(ANCHOR, precision="Single"), "A7"),
+        (dict(ANCHOR, precision="Single", step_control_type="BoxReduced"), "A7"),
     ],
 )
 def test_unported_configurations_raise(kwargs, item):
     _, tp = params_pair(**kwargs)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         pygradflow_torch.Solver(TPendulum(N=2), tp, device="cpu")
+
+
+def test_checkpointing_raises():
+    _, tp = params_pair(**ANCHOR)
+    solver = pygradflow_torch.Solver(TPendulum(N=2), tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        solver.solve(TPendulum(N=2).x0_trajectory(), checkpoint_path="unused")
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(ANCHOR, report_rcond=True),
+        dict(ANCHOR, step_control_type="BoxReduced"),
+        dict(ANCHOR, step_control_type="Optimizing"),
+        dict(linear_solver_type="MINRES", step_solver_type="Symmetric"),
+        dict(linear_solver_type="GMRES"),
+        dict(ANCHOR, collect_path=True),
+    ],
+    ids=["report_rcond", "BoxReduced", "Optimizing", "MINRES", "GMRES", "collect_path"],
+)
+def test_formerly_unported_configurations_solve(kwargs):
+    """The options of ROADMAP A4, A6, A8 and A10 construct and solve the
+    smallest pendulum to Optimal; Optimizing, which never stops on the
+    pendulum in either package, solves Tame."""
+    from .torch_parity import Tame
+
+    _, tp = params_pair(**kwargs)
+    if kwargs.get("step_control_type") == "Optimizing":
+        p, x0 = Tame(), np.zeros(2)
+    else:
+        p = TPendulum(N=2)
+        x0 = p.x0_trajectory()
+    r = pygradflow_torch.Solver(p, tp, device="cpu").solve(tensor(x0))
+    assert r.status.name == "Optimal"
 
 
 def test_problem_products_match(state):

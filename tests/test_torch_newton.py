@@ -289,7 +289,7 @@ def test_pendulum_newton_types_on_pallas_match_jax(kwargs, counts):
 def _exact_solver():
     from pygradflow_torch.linalg import LinearSolver
 
-    def solve(mat, rhs):
+    def solve(mat, rhs, initial_sol=None):
         return torch.linalg.solve(mat, rhs)
 
     return LinearSolver(lambda mat: mat, solve, solve, None, "exact")
