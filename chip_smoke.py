@@ -89,7 +89,24 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    equal to the CPU run's to 1e-8 relative; (f) BoxReduced on the boxed
    Laplacian QP at n = 250 (the reduced Hessian through the plain LU, no
    kernel).  The CPU references run in worker processes while the card
-   runs.
+   runs;
+10. continuous: the continuous engine (``pygradflow_torch.integration``)
+   on the card, no kernel, each run held against the port's CPU run of the
+   same configuration (worker processes meanwhile): status, segments,
+   integration steps and Newton steps equal and x within 1e-8, or, where
+   the roundings part the counts, Optimal and x within 1e-6 (listed at the
+   end), and counts equal to those of the JAX package's run that takes
+   the same trajectory (``JAX_INTEG``); with each run's wall, ms per step
+   or work unit and host reads: (a) the host engine on HS71 and Tame under
+   TR-BDF2 and SDIRK4; (b) implicit Euler on the host engine for three
+   small problems and on the flat engine for HS71 (run last, its CPU
+   reference being the longest); (c) HS71 under SDIRK4 on the device and
+   flat engines; (d) ``BatchedIntegrationSolver`` on 1024, then 64,
+   perturbed HS71 starts (every lane Optimal, lanes 0-7 against the CPU's
+   single flat solves and JAX's lanes), with the CUDA-event ms of one work
+   unit's fast and full graphs.  The CPU runs start with this phase, in 5
+   worker processes.  ``python3 chip_smoke.py --only 10`` runs this phase
+   alone.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
@@ -1188,6 +1205,276 @@ def last_options_phase(card, workers=4):
     print(f"last options launches: {totals}", flush=True)
     return totals
 
+# phase 10: the continuous engine.  Each run beside the JAX package's counts
+# on the CPU (segments / integration steps / Newton steps): from the run's
+# own start, and the counts the run must equal, those of the JAX run whose
+# trajectory the port takes.  Where a last-bit difference parts the two
+# packages, that is the JAX run from a start a few ulps away
+# (tests/test_torch_integration_solver.py and _batch.py hold these against
+# live JAX runs; ROADMAP Queue C); None where no such start was found, and
+# then the segments must equal.  (d) holds lanes 0-7 against the port's
+# single flat solves too.
+INTEG = dict(iteration_limit=1000, rho=1e-2)
+INTEG_B, INTEG_B_SMALL, INTEG_LANES = 1024, 64, 8
+_HS71_SDIRK4 = ((10, 195, 2432), (9, 189, 2400))  # x0[2] = 5 + 2^-50
+JAX_INTEG = {
+    "(a) HS71 TRBDF2": ((10, 357, 1785),) * 2, "(a) HS71 SDIRK4": _HS71_SDIRK4,
+    "(a) Tame TRBDF2": ((12, 684, 2697),) * 2, "(a) Tame SDIRK4": ((11, 240, 2318),) * 2,
+    "(b) SimpleUnbounded Euler": ((1, 21, 63),) * 2, "(b) ActiveSetChange Euler": ((1, 1280, 7680),) * 2,
+    "(b) SingleActiveSet Euler": ((2, 4955, 29730),) * 2, "(b) HS71 Euler flat": ((10, 4027, 37214), None),
+    "(c) HS71 SDIRK4 device": _HS71_SDIRK4, "(c) HS71 SDIRK4 flat": _HS71_SDIRK4,
+}
+JAX_INTEG_LANES = [
+    ((11, 194, 2463), (12, 202, 2511)), ((12, 192, 2448),) * 2, ((10, 186, 2350),) * 2, ((12, 204, 2582),) * 2,
+    ((10, 191, 2358), (9, 181, 2297)), ((13, 205, 2538), (12, 196, 2483)), ((10, 186, 2344),) * 2,
+    ((12, 198, 2447), (12, 200, 2463)),
+]
+INTEG_RUNS = [
+    "(a) HS71 TRBDF2", "(a) HS71 SDIRK4", "(a) Tame TRBDF2", "(a) Tame SDIRK4",
+    "(b) SimpleUnbounded Euler", "(b) ActiveSetChange Euler", "(b) SingleActiveSet Euler",
+    "(c) HS71 SDIRK4 device", "(c) HS71 SDIRK4 flat",
+]
+INTEG_LAST = "(b) HS71 Euler flat"
+"""Run after (d): its CPU reference, started first in a worker of its own,
+is the longest (146 s on the card's host), and the card's other runs
+overlap it."""
+PARTED = []  # (label, card counts, cpu counts) of runs whose counts part
+
+
+def _integ_config(name):
+    """Problem, params, start point of the phase 10 run ``name``; the card
+    and the CPU reference build it alike."""
+    import numpy as np
+
+    import tests.torch_parity as tp
+    from pygradflow_torch import IntegrationMethod, Params
+
+    method = {"TRBDF2": "TRBDF2", "SDIRK4": "SDIRK4", "Euler": "ImplicitEuler"}
+    kwargs = dict(INTEG)
+    for word in name.split():
+        if word in method:
+            kwargs["integration_method"] = IntegrationMethod[method[word]]
+    if name.endswith("device") or name.endswith("flat"):
+        kwargs["integration_device_loop"] = True
+    if name.endswith("flat"):
+        kwargs["time_limit"] = 9000.0
+    starts = {
+        "HS71": (tp.HS71Explicit, [1.0, 5.0, 5.0, 1.0, 0.0], [0.0, 0.0]),
+        "Tame": (tp.TameExplicit, [0.0, 0.0], [0.0]),
+        "SimpleUnbounded": (tp.SimpleUnboundedProblem, [0.0], []),
+        "ActiveSetChange": (tp.ActiveSetChangeProblem, [10.0], []),
+        "SingleActiveSet": (tp.SingleActiveSetProblem, [1.5, 10.0], []),
+    }
+    cls, x0, y0 = starts[name.split()[1]]
+    return cls(), Params(**kwargs), np.array(x0), np.array(y0)
+
+
+def _integ_batch(B):
+    """bench_integration_batch.py's configuration: B perturbed HS71 starts
+    from default_rng(7), SDIRK4, integration_max_steps=50_000."""
+    import numpy as np
+
+    import tests.torch_parity as tp
+    from pygradflow_torch import IntegrationMethod, Params
+
+    rng = np.random.default_rng(7)
+    x0s = np.clip(
+        np.array([1.0, 5.0, 5.0, 1.0, 0.0])[None, :] + rng.uniform(-0.1, 0.1, size=(B, 5)),
+        np.array([1.0, 1.0, 1.0, 1.0, 0.0]), np.array([5.0, 5.0, 5.0, 5.0, 2.0]),
+    )
+    params = Params(**INTEG, integration_max_steps=50_000, integration_method=IntegrationMethod.SDIRK4)
+    return tp.HS71Explicit(), params, x0s, np.zeros((B, 2))
+
+
+def _integ_reference(name):
+    """The port's CPU run of the phase 10 run ``name`` (in a worker process):
+    a single solve, or for "lane k" the single flat solve of lane k of (d)."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from pygradflow_torch.integration import IntegrationSolver
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    if name.startswith("lane"):
+        problem, params, x0s, y0s = _integ_batch(INTEG_LANES)
+        k = int(name.split()[1])
+        params = params.__class__(**{**params.__dict__, "integration_device_loop": True, "time_limit": 9000.0})
+        x0, y0 = x0s[k], y0s[k]
+    else:
+        problem, params, x0, y0 = _integ_config(name)
+    res = IntegrationSolver(problem, params, device="cpu").solve(torch.tensor(x0), torch.tensor(y0))
+    return dict(status=res.status.name, counts=(res.iterations, res.num_integration_steps, res.num_newton_steps),
+                rho=res.final_rho, x=res.x.numpy(), wall=time.perf_counter() - t0)
+
+
+def _hold_counts(label, status, counts, x, ref, require_optimal=True):
+    """A card run against its CPU reference: equal status; equal counts and
+    x within 1e-8, or, where the roundings part the counts, status Optimal
+    and x within X_TOL (recorded in PARTED)."""
+    import numpy as np
+
+    if status != ref["status"] or (require_optimal and status != "Optimal"):
+        fail(f"{label}: status {status}, cpu {ref['status']}")
+    dx = float(np.abs(np.asarray(x) - ref["x"]).max()) if ref["x"].size else 0.0
+    if not np.isfinite(np.asarray(x)).all():
+        fail(f"{label}: solution not finite")
+    if tuple(counts) == tuple(ref["counts"]):
+        if status == "Optimal" and not dx <= 1e-8:
+            fail(f"{label}: equal counts, x differs from the cpu run by {dx:.3e}")
+        return dx, "equal"
+    if status != "Optimal" or not dx <= X_TOL:
+        fail(f"{label}: counts {counts}, cpu {ref['counts']}, |dx| {dx:.3e}")
+    PARTED.append((label, tuple(counts), tuple(ref["counts"])))
+    return dx, "parted"
+
+
+def _hold_jax(label, counts, jax):
+    """A run's counts against the JAX package's ``(nominal, trajectory)``
+    counts: equal to the trajectory's, or with no trajectory found equal in
+    segments.  Returns the text to print."""
+    nominal, trajectory = jax
+    if trajectory is None:
+        if counts[0] != nominal[0]:
+            fail(f"{label}: {counts[0]} segments, JAX {nominal[0]}")
+        return f"JAX {'/'.join(map(str, nominal))}, parted past the segments"
+    if tuple(counts) != trajectory:
+        fail(f"{label}: counts {counts}, JAX's trajectory {trajectory}")
+    if trajectory == nominal:
+        return f"JAX {'/'.join(map(str, nominal))} equal"
+    return f"JAX {'/'.join(map(str, nominal))}, from a start ulps away {'/'.join(map(str, trajectory))} equal"
+
+
+def _graph_unit_ms(card, solver, x0s, y0s, runs=20):
+    """CUDA-event ms of one work unit at the full width from the batch's
+    start: the fast graph (Newton capped, no escalation), the full graph
+    (every loop to its full trip count) and the eager unit (host reads)."""
+    import torch
+
+    runner = solver.runner
+    x, y = torch.func.vmap(solver.inner.transform.transform_sol)(
+        torch.tensor(x0s, device="cuda"), torch.tensor(y0s, device="cuda")
+    )
+    state = runner.init(x, y)
+    keys = tuple(state)
+    runner._keys = keys
+    args = tuple(state[k] for k in keys)
+    runner._pair(*args)  # loads the start into the graphs' inputs
+    fast_graph, full_graph = runner._pair.graphs(*args)
+    fast = cuda_ms(fast_graph.replay, runs)
+    full = cuda_ms(full_graph.replay, runs)
+    eager = cuda_ms(lambda: runner._chunk(dict(state), 1), 3)
+    print(f"continuous graph unit B={x.shape[0]}: fast {fast:.2f} ms, full {full:.2f} ms, eager {eager:.2f} ms [{card}]",
+          flush=True)
+
+
+def continuous_references(workers=4):
+    """Start the port's CPU runs of phase 10: the longest (``INTEG_LAST``) in
+    a worker of its own, the rest in ``workers`` more, in the order the card
+    needs them.  Returns the two pools and the pending results by name."""
+    import multiprocessing
+
+    spawn = multiprocessing.get_context("spawn")
+    last, pool = spawn.Pool(1), spawn.Pool(workers)
+    pending = {INTEG_LAST: last.apply_async(_integ_reference, (INTEG_LAST,))}
+    for name in INTEG_RUNS + [f"lane {k}" for k in range(INTEG_LANES)]:
+        pending[name] = pool.apply_async(_integ_reference, (name,))
+    return (last, pool), pending
+
+
+def continuous_phase(card):
+    """Phase 10: the continuous engine on the card, each run held against the
+    port's CPU run of the same configuration (``continuous_references``, run
+    in worker processes while the card runs this phase) and against the JAX
+    package's counts (``JAX_INTEG``)."""
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import SolverStatus
+    from pygradflow_torch.integration import BatchedIntegrationSolver, IntegrationSolver
+    from pygradflow_torch.util import HOST_READS
+
+    t_phase = time.perf_counter()
+    lane_names = [f"lane {k}" for k in range(INTEG_LANES)]
+    (last, pool), pending = continuous_references()
+    with last, pool:
+
+        def single(name):
+            problem, params, x0, y0 = _integ_config(name)
+            HOST_READS.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = IntegrationSolver(problem, params).solve(torch.tensor(x0, device="cuda"), torch.tensor(y0, device="cuda"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if res.x.device.type != "cuda":
+                fail(f"continuous {name}: solved on {res.x.device}")
+            reads = dict(HOST_READS)
+            counts = (res.iterations, res.num_integration_steps, res.num_newton_steps)
+            ref = pending[name].get(timeout=900)
+            require = name.split()[1] != "SimpleUnbounded"
+            dx, how = _hold_counts(f"continuous {name}", res.status.name, counts, res.x.cpu().numpy(), ref, require)
+            jax = _hold_jax(f"continuous {name}", counts, JAX_INTEG[name])
+            per, units = ("unit", res.num_work_units) if name.endswith("flat") else ("step", counts[1])
+            print(
+                f"continuous {name}: {res.status.name} {counts[0]}/{counts[1]}/{counts[2]} rho={res.final_rho:.0e} "
+                f"(cpu {ref['counts'][0]}/{ref['counts'][1]}/{ref['counts'][2]} {how}; {jax}) "
+                f"|x-x_cpu|={dx:.3e} wall={wall:.3f} s "
+                f"ms/{per}={1e3 * wall / max(units, 1):.2f} host reads {reads} cpu_wall={ref['wall']:.1f} s [{card}]",
+                flush=True,
+            )
+
+        for name in INTEG_RUNS:
+            single(name)
+
+        # (d) the batch at full width, then at 64 lanes: lanes 0-7 against
+        # the CPU's single flat solves and JAX's lanes
+        lane_refs = [pending[n].get(timeout=900) for n in lane_names]
+        solver = None
+        for B in (INTEG_B, INTEG_B_SMALL):
+            problem, params, x0s, y0s = _integ_batch(B)
+            if solver is None:
+                solver = BatchedIntegrationSolver(problem, params)
+            HOST_READS.clear()
+            solver.runner._pair.replays.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solver.solve(torch.tensor(x0s, device="cuda"), torch.tensor(y0s, device="cuda"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            reads, replays = dict(HOST_READS), dict(solver.runner._pair.replays)
+            status = res.status.cpu().numpy()
+            optimal = int((status == int(SolverStatus.Optimal)).sum())
+            if optimal != B or not torch.isfinite(res.x).all() or tuple(res.x.shape) != (B, 5):
+                fail(f"continuous (d) B={B}: {optimal}/{B} Optimal, statuses {np.bincount(status).tolist()}")
+            segs, steps = res.iterations.cpu().numpy(), res.num_integration_steps.cpu().numpy()
+            units = res.units.cpu().numpy()
+            held, jax_held = [], []
+            for k in range(INTEG_LANES):
+                counts = (int(segs[k]), int(steps[k]), int(res.num_newton_steps[k]))
+                _, how = _hold_counts(f"continuous (d) B={B} lane {k}", SolverStatus(int(status[k])).name, counts,
+                                      res.x[k].cpu().numpy(), lane_refs[k])
+                held.append(how)
+                jax_held.append(_hold_jax(f"continuous (d) B={B} lane {k}", counts, JAX_INTEG_LANES[k]))
+            lanes = [f"{int(segs[k])}/{int(steps[k])}" for k in range(INTEG_LANES)]
+            jax_equal = sum(text.endswith("equal") and "ulps" not in text for text in jax_held)
+            print(
+                f"continuous (d) B={B}: {optimal}/{B} Optimal (success {optimal / B:.3f}), segments max "
+                f"{int(segs.max())} sum {int(segs.sum())}, steps max {int(steps.max())} sum {int(steps.sum())}, "
+                f"units max {int(units.max())} sum {int(units.sum())}, tiers {solver.tiers}, lanes 0-7 {lanes} "
+                f"(cpu flat {['%d/%d' % r['counts'][:2] for r in lane_refs]}: {held.count('equal')} equal; JAX's "
+                f"lanes: {jax_equal} of 8 from the same start, the rest from starts one ulp away) "
+                f"wall={wall:.3f} s solves/s={B / wall:.1f} "
+                f"ms/unit={1e3 * wall / int(units.max()):.2f} graph replays {replays} host reads {reads} [{card}]",
+                flush=True,
+            )
+            if B == INTEG_B:
+                _graph_unit_ms(card, solver, x0s, y0s)
+        single(INTEG_LAST)
+    for label, ours, theirs in PARTED:
+        print(f"continuous parted: {label} card {ours} cpu {theirs}", flush=True)
+    print(f"continuous phase: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
 
 def main():
     try:
@@ -1206,6 +1493,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     card = device_phase()
+    if sys.argv[1:] == ["--only", "10"]:  # the continuous engine alone, no kernel
+        continuous_phase(card)
+        device = dict(platform="gpu", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     build_phase()
     path = path_matrices("cuda")
     records = kernel_phase(card, path)
@@ -1223,6 +1515,7 @@ def main():
     records["rl"]["cases"].append(qp_case)
     for key, count in last_options_phase(card).items():
         launches[key] += count
+    continuous_phase(card)
 
     summary = []
     for key, (name, replaces) in KERNELS.items():
@@ -1242,7 +1535,6 @@ def main():
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
     print(json.dumps({"ok": True, "device": device}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

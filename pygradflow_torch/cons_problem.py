@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .problem import Problem
+from .util import PerDevice
 
 
 class ConstrainedProblem(Problem):
@@ -43,15 +44,21 @@ class ConstrainedProblem(Problem):
             self._slack_jac = slack_jac
 
         super().__init__(var_lb, var_ub, num_cons=num_cons)
+        # constant data on the device of a point, copied there once (no
+        # host copy inside a CUDA graph's capture)
+        self._positions = PerDevice(lambda device: torch.as_tensor(self.slack_positions, device=device)).on
+        self._offsets = PerDevice(
+            lambda device: torch.as_tensor(self.cons_offsets, dtype=torch.float64, device=device)
+        ).on
+        self._slack = PerDevice(
+            lambda device: torch.as_tensor(self._slack_jac, dtype=torch.float64, device=device)
+        ).on
 
     def orig_vals(self, x):
         return x[..., : self.problem.num_vars]
 
     def slack_vals(self, x):
         return x[..., self.problem.num_vars :]
-
-    def _positions(self, x):
-        return torch.as_tensor(self.slack_positions, device=x.device)
 
     def obj(self, x, *args):
         return self.problem.obj(self.orig_vals(x), *args)
@@ -65,7 +72,7 @@ class ConstrainedProblem(Problem):
     def cons(self, x, *args):
         c = self.problem.cons(self.orig_vals(x), *args)
         if self.cons_offsets is not None:
-            c = c + torch.as_tensor(self.cons_offsets, dtype=c.dtype, device=c.device)
+            c = c + self._offsets(c).to(c.dtype)
         if self.num_slacks == 0:
             return c
         return c.index_add(0, self._positions(x), -self.slack_vals(x))
@@ -74,7 +81,7 @@ class ConstrainedProblem(Problem):
         jac = self.problem.cons_jac(self.orig_vals(x), *args)
         if self.num_slacks == 0:
             return jac
-        slack = torch.as_tensor(self._slack_jac, dtype=jac.dtype, device=jac.device)
+        slack = self._slack(jac).to(jac.dtype)
         return torch.cat([jac, slack], dim=1)
 
     def lag_hess(self, x, y, *args):

@@ -310,3 +310,64 @@ def test_gmres_cuda_graph_equals_eager(cuda, batched, monkeypatch):
     assert torch.equal(graphed, gmres_module.gmres(a_d, b_d))
     cpu = gmres_module.gmres(torch.tensor(a), torch.tensor(b))
     np.testing.assert_allclose(graphed.cpu().numpy(), cpu.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def _hs71_lanes(B=8):
+    """The first B of bench_integration_batch.py's perturbed HS71 starts."""
+    rng = np.random.default_rng(7)
+    x0s = np.clip(
+        np.array([1.0, 5.0, 5.0, 1.0, 0.0]) + rng.uniform(-0.1, 0.1, size=(B, 5)),
+        np.array([1.0, 1.0, 1.0, 1.0, 0.0]), np.array([5.0, 5.0, 5.0, 5.0, 2.0]),
+    )
+    return x0s, np.zeros((B, 2))
+
+
+def test_flat_chunk_graph_equals_eager_units(cuda):
+    """The flat engine's chunk replays a CUDA graph pair of one work unit.
+    On 8 HS71 lanes advanced 24 units, steps of up to 3 on six lanes make
+    the fast graph's frozen Newton fail, so the full graph is replayed too;
+    the next 48 units give the bits of the same units launched one kernel
+    at a time, and the CPU's counts."""
+    from pygradflow_torch import IntegrationMethod
+    from pygradflow_torch.integration import BatchedIntegrationSolver
+
+    from .torch_parity import HS71Explicit
+
+    params = Params(iteration_limit=1000, rho=1e-2, integration_method=IntegrationMethod.SDIRK4,
+                    integration_chunk=48)
+    x0s, y0s = _hs71_lanes()
+    h = torch.tensor([1e-4, 0.3, 1.0, 3.0] * 2, dtype=torch.float64)
+    states = {}
+    for device in (cuda, "cpu"):
+        solver = BatchedIntegrationSolver(HS71Explicit(), params, device=device)
+        runner = solver.runner
+        x, y = torch.func.vmap(solver.inner.transform.transform_sol)(
+            torch.tensor(x0s, device=device), torch.tensor(y0s, device=device)
+        )
+        start = dict(runner._chunk(runner.init(x, y), 24, 1), h=h.to(device))
+        states[str(device)] = runner.chunk({k: v.clone() for k, v in start.items()})
+        if device == cuda:
+            assert runner._pair.replays["fast"] == 48 and runner._pair.replays["full"] > 0
+            eager = runner._chunk({k: v.clone() for k, v in start.items()}, 48, 1)
+    graph, cpu = states[str(cuda)], states["cpu"]
+    for key, value in graph.items():
+        assert torch.equal(value, eager[key]), key
+    for key in ("status", "iteration", "steps", "newtons", "units", "mode"):
+        assert torch.equal(graph[key].cpu(), cpu[key]), key
+    np.testing.assert_allclose(graph["z"].cpu().numpy(), cpu["z"].numpy(), rtol=0, atol=1e-12)
+
+
+def test_integration_solver_defaults_to_cuda(cuda):
+    from pygradflow_torch.integration import IntegrationSolver
+
+    from .torch_parity import HS71Explicit
+
+    params = Params(iteration_limit=2, rho=1e-2)
+    solver = IntegrationSolver(HS71Explicit(), params)
+    assert solver.device.type == "cuda"
+    res = solver.solve(torch.tensor([1.0, 5.0, 5.0, 1.0, 0.0], device=cuda), torch.zeros(2, dtype=torch.float64, device=cuda))
+    assert res.x.device.type == "cuda"
+    cpu = IntegrationSolver(HS71Explicit(), params, device="cpu").solve(torch.tensor([1.0, 5.0, 5.0, 1.0, 0.0]),
+                                                                         torch.zeros(2, dtype=torch.float64))
+    assert (res.status, res.iterations, res.num_integration_steps, res.num_newton_steps) == (
+        cpu.status, cpu.iterations, cpu.num_integration_steps, cpu.num_newton_steps)

@@ -329,3 +329,129 @@ class HS106(_HSTwin):
                 x[2] * x[7] - 1250000.0 - x[2] * x[4] + 2500.0 * x[4],
             ]
         )
+
+
+class HS71Explicit(HS71):
+    """``HS71`` with its derivatives written out as elementwise expressions:
+    one instance, a lane stack, the CPU and a card evaluate them in the same
+    order (autodiff's reductions do not), and the continuous engine's
+    thousands of evaluations skip the autodiff overhead."""
+
+    def obj(self, x):
+        return x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2]
+
+    def obj_grad(self, x):
+        s = x[0] + x[1] + x[2]
+        x0x3 = x[0] * x[3]
+        return torch.stack([x[3] * s + x0x3, x0x3, x0x3 + 1.0, x[0] * s, torch.zeros_like(s)])
+
+    def cons(self, x):
+        return torch.stack(
+            [x[0] * x[1] * x[2] * x[3] - x[4] - 25.0, x[0] * x[0] + x[1] * x[1] + x[2] * x[2] + x[3] * x[3] - 40.0]
+        )
+
+    def cons_jac(self, x):
+        a, b, c, d = x[0], x[1], x[2], x[3]
+        zero = torch.zeros_like(a)
+        return torch.stack(
+            [
+                torch.stack([b * c * d, a * c * d, a * b * d, a * b * c, zero - 1.0]),
+                torch.stack([2.0 * a, 2.0 * b, 2.0 * c, 2.0 * d, zero]),
+            ]
+        )
+
+    def lag_hess(self, x, y):
+        a, b, c, d = x[0], x[1], x[2], x[3]
+        y0, y1 = y[0], y[1]
+        zero = torch.zeros_like(a)
+        diag = 2.0 * y1
+        h01 = d + y0 * (c * d)
+        h02 = d + y0 * (b * d)
+        h03 = (2.0 * a + b + c) + y0 * (b * c)
+        h12 = y0 * (a * d)
+        h13 = a + y0 * (a * c)
+        h23 = a + y0 * (a * b)
+        return torch.stack(
+            [
+                torch.stack([2.0 * d + diag, h01, h02, h03, zero]),
+                torch.stack([h01, diag, h12, h13, zero]),
+                torch.stack([h02, h12, diag, h23, zero]),
+                torch.stack([h03, h13, h23, diag, zero]),
+                torch.stack([zero, zero, zero, zero, zero]),
+            ]
+        )
+
+
+class TameExplicit(Tame):
+    """``Tame`` with its derivatives written out (see ``HS71Explicit``)."""
+
+    def obj_grad(self, z):
+        d = 2.0 * (z[0] - z[1])
+        return torch.stack([d, -d])
+
+    def cons_jac(self, z):
+        one = torch.ones_like(z[0])
+        return torch.stack([torch.stack([one, one])])
+
+    def lag_hess(self, z, y):
+        two = torch.full_like(z[0], 2.0)
+        return torch.stack([torch.stack([two, -two]), torch.stack([-two, two])])
+
+
+class SimpleProblem(Problem):
+    """Torch twin of ``tests/test_integration_solver.py::SimpleProblem``:
+    ``x^2 / 2`` on the line, derivatives written out."""
+
+    def __init__(self, lb=-np.inf):
+        super().__init__(np.array([lb]), np.array([np.inf]))
+
+    def obj(self, x):
+        return 0.5 * x[0] ** 2
+
+    def obj_grad(self, x):
+        return x
+
+    def lag_hess(self, x, y):
+        return torch.ones_like(x)[:, None]
+
+
+class ActiveSetChangeProblem(SimpleProblem):
+    """Torch twin of ``ActiveSetChangeProblem``: ``x^2 / 2`` over ``x >= 1``."""
+
+    def __init__(self):
+        super().__init__(lb=1.0)
+
+
+class SimpleUnboundedProblem(Problem):
+    """Torch twin of ``SimpleUnboundedProblem``: ``min x`` on the line."""
+
+    def __init__(self):
+        super().__init__(np.array([-np.inf]), np.array([np.inf]))
+
+    def obj(self, x):
+        return x[0]
+
+    def obj_grad(self, x):
+        return torch.ones_like(x)
+
+    def lag_hess(self, x, y):
+        return torch.zeros_like(x)[:, None]
+
+
+class SingleActiveSetProblem(Problem):
+    """Torch twin of ``SingleActiveSetProblem``: ``|z|^2 / 2`` over
+    ``z_0 >= 1``."""
+
+    def __init__(self):
+        super().__init__(np.array([1.0, -np.inf]), np.array([np.inf, np.inf]))
+
+    def obj(self, z):
+        return 0.5 * (z[0] * z[0] + z[1] * z[1])
+
+    def obj_grad(self, z):
+        return z
+
+    def lag_hess(self, z, y):
+        one = torch.ones_like(z[0])
+        zero = torch.zeros_like(z[0])
+        return torch.stack([torch.stack([one, zero]), torch.stack([zero, one])])
