@@ -106,7 +106,29 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    single flat solves and JAX's lanes), with the CUDA-event ms of one work
    unit's fast and full graphs.  The CPU runs start with this phase, in 5
    worker processes.  ``python3 chip_smoke.py --only 10`` runs this phase
-   alone.
+   alone;
+11. precision: single precision, the mixed sweep, checkpoint and resume,
+   the display, derivative checks and multistart on the card, each run
+   held against the port's CPU run of the same configuration (3 worker
+   processes started with the phase): status, counts and x (1e-3 in f32,
+   1e-6 in f64), or, where f32 rounding parts a knife-edge lane's counts,
+   both Optimal and x within that bound (listed as parted); (a)
+   ``bench.py``'s f32 headline (16384 Rosenbrock lanes, every lane Optimal,
+   |x - 1| < 1e-2) and (b) its Mixed (``MixedPrecisionSolver``, |x - 1| <
+   1e-4), solves/s from a warm-up and the minimum of 5 beside the f64
+   headline timed alike; (c) ``bench_hs.py``'s ``f32_4096_tol4`` and
+   ``mixed_16384`` on HS71 (success 1.0); (a)-(c) also against the JAX
+   package's counts; (d) the pendulum at N = 128 in f32 (B1' only), whose
+   last f32 KKT matrix is then held against the plain version as in phase
+   3; (e) ``MixedPrecisionSolver`` on phase 5's fleet (B2' in both stages);
+   (f) the pendulum at N = 128 cut at 8 iterations with a checkpoint and
+   resumed, bit for bit equal to the uninterrupted solve; (g) HS71 with the
+   display (a row per iteration, the counts and x of the run without it)
+   and ``DerivCheck.CheckAll``, and a wrong gradient raising
+   ``DerivError``; (h) ``multistart_solve`` on 1024 starts of a four-well
+   problem (best lane and objective); (i) ``IntegrationSolver`` in f32 on
+   Tame.  ``python3 chip_smoke.py --only 11`` runs the build and this
+   phase alone.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
@@ -1476,6 +1498,426 @@ def continuous_phase(card):
     print(f"continuous phase: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
+# phase 11: single precision, the mixed-precision sweep, checkpoint and
+# resume, the display, derivative checks and multistart.  The JAX package's
+# counts on the CPU (tests/test_torch_precision.py and
+# tests/test_torch_mixed_multistart.py hold them against live JAX runs):
+# bench.py's first 8 f32 lanes, where lane 6 stops on the edge of opt_tol in
+# JAX's vmapped run (6) and takes 7 in the single solves of both packages;
+# the mixed totals; bench_hs.py's first 8 HS71 lanes.
+SINGLE = dict(precision="Single", opt_tol=1e-4, lamb_min=1e-6)
+F32_X_TOL = 1e-3  # x of an f32 solve at opt_tol 1e-4, card against cpu
+JAX_F32_LANES = [26, 50, 7, 26, 29, 6, 6, 16]
+JAX_F32_SINGLE_LANE6 = 7
+JAX_MIXED_LANES = [29, 53, 10, 29, 32, 9, 9, 19]
+JAX_HS71_F32_LANES = [18, 19, 19, 18, 21, 20, 20, 20]
+JAX_HS71_MIXED_LANES = [21, 20, 22, 20, 25, 22, 24, 23]
+JAX_TAME_F32 = (7, 622, 9946)
+HS71_F32_B, MULTISTART_B, PRECISION_N, CHECKPOINT_N = 4096, 1024, 128, 128
+PRECISION_RUNS = ["(a) f32", "(b) mixed", "(c) hs71 f32", "(c) hs71 mixed", "(d) pendulum f32", "(e) fleet mixed",
+                  "(h) multistart", "(i) tame f32"]
+
+
+def _hs71_starts(batch):
+    """bench_hs.py:47-53's starts."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    base = np.array([1.0, 5.0, 5.0, 1.0, 0.0])
+    pert = rng.uniform(-0.5, 0.5, size=(batch, 5))
+    return np.clip(base[None, :] + pert, np.array([1.0, 1.0, 1.0, 1.0, 0.0]), np.array([5.0, 5.0, 5.0, 5.0, 10.0]))
+
+
+def _precision_config(name):
+    """Kind ("batch", "mixed", "single", "multistart" or "integration"),
+    problem, params and starts of the phase 11 run ``name``; the card and
+    the CPU reference build it alike."""
+    import numpy as np
+
+    import tests.torch_parity as tp
+    from pygradflow_torch import LinearSolverType, Params
+    from pygradflow_torch.runners.control import PendulumControl
+
+    bench = dict(validate_input=False, jit_chunk=128)
+    pallas = dict(linear_solver_type=LinearSolverType.PallasLDLT, iteration_limit=3000, validate_input=False)
+    rosenbrock = np.random.default_rng(0).uniform(-1.5, 1.5, size=(HEADLINE_B, 2))
+    if name == "(a) f32":
+        return "batch", tp.Rosenbrock(), Params(**bench, **SINGLE), rosenbrock
+    if name == "(a) f64":
+        return "batch", tp.Rosenbrock(), Params(**bench), rosenbrock
+    if name == "(b) mixed":
+        return "mixed", tp.Rosenbrock(), Params(**bench), rosenbrock
+    if name == "(c) hs71 f32":
+        return "batch", tp.HS71(), Params(**bench, **SINGLE), _hs71_starts(HS71_F32_B)
+    if name == "(c) hs71 mixed":
+        return "mixed", tp.HS71(), Params(**bench), _hs71_starts(HEADLINE_B)
+    if name == "(d) pendulum f32":
+        problem = PendulumControl(N=PRECISION_N)
+        return "single", problem, Params(**pallas, **SINGLE), problem.x0_trajectory()
+    if name == "(e) fleet mixed":
+        problem = PendulumControl(N=FLEET_N)
+        rng = np.random.default_rng(0)
+        x0 = problem.x0_trajectory()[None, :] + 0.02 * rng.standard_normal((FLEET_B, problem.num_vars))
+        return "mixed", problem, Params(**pallas), x0
+    if name == "(h) multistart":
+        return "multistart", tp.FourWells(), Params(), np.random.default_rng(11).uniform(-2.0, 2.0, (MULTISTART_B, 2))
+    if name == "(i) tame f32":
+        return "integration", tp.TameExplicit(), Params(iteration_limit=1000, rho=1e-2, **SINGLE), np.zeros(2)
+    raise ValueError(name)
+
+
+def _precision_solve(name, device, lanes=None):
+    """Run ``name`` on ``device`` (its first ``lanes`` starts when given);
+    returns the result and, for a mixed run, its bulk stage's result."""
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import Solver
+    from pygradflow_torch.integration import IntegrationSolver
+    from pygradflow_torch.parallel import BatchedSolver, MixedPrecisionSolver, multistart_solve
+
+    kind, problem, params, x0 = _precision_config(name)
+    if lanes is not None:
+        x0 = x0[:lanes]
+    x0 = torch.tensor(x0, device=device)
+    if kind == "batch":
+        return BatchedSolver(problem, params, device=device).solve(x0), None
+    if kind == "mixed":
+        solver = MixedPrecisionSolver(problem, params, device=device)
+        return solver.solve(x0), solver.bulk_result
+    if kind == "single":
+        return Solver(problem, params, device=device).solve(x0), None
+    if kind == "multistart":
+        return multistart_solve(problem, x0, params, device=device), None
+    return IntegrationSolver(problem, params, device=device).solve(x0, torch.zeros(1, dtype=torch.float64, device=device)), None
+
+
+def _precision_reference(name):
+    """The port's CPU run of the phase 11 run ``name`` (in a worker
+    process): every start of a single solve or a multistart, the first 8
+    lanes of a batch."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    kind = _precision_config(name)[0]
+    lanes = None if kind in ("single", "multistart", "integration") else CPU_LANES
+    res, bulk = _precision_solve(name, "cpu", lanes)
+    out = dict(wall=time.perf_counter() - t0)
+    if kind in ("batch", "mixed"):
+        out.update(status=res.status.tolist(), iterations=res.iterations.tolist(),
+                   accepted=res.accepted_steps.tolist(), x=res.x.numpy())
+        if bulk is not None:
+            out["bulk"] = bulk.iterations.tolist()
+    elif kind == "multistart":
+        out.update(best=res.best_index, obj=float(res.obj), num_optimal=res.num_optimal, x=res.x.numpy())
+    elif kind == "single":
+        out.update(status=res.status.name, counts=(res.iterations, res.num_accepted_steps), x=res.x.numpy())
+    else:
+        out.update(status=res.status.name, counts=(res.iterations, res.num_integration_steps, res.num_newton_steps),
+                   x=res.x.numpy())
+    return out
+
+
+def _solves_per_s(solver, x0, runs=5):
+    """bench.py's timing: a warm-up, then the minimum of ``runs`` walls;
+    returns the last result and its solves per second."""
+    import torch
+
+    solver.solve(x0)
+    best = float("inf")
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.solve(x0)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return res, x0.shape[0] / best
+
+
+def precision_phase(card):
+    """Phase 11: Precision.Single, MixedPrecisionSolver, checkpoint and
+    resume, the display, derivative checks and multistart on the card, each
+    run held against the port's CPU run of the same configuration (computed
+    by worker processes started with the phase) and, for (a)-(c), against
+    the JAX package's counts.  Returns the launches of the card runs."""
+    import logging
+    import multiprocessing
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import DerivCheck, LinearSolverType, Params, Solver, SolverStatus
+    from pygradflow_torch.deriv_check import DerivError
+    from pygradflow_torch.linalg import ldlt_kernels as lk
+    from pygradflow_torch.linalg.ldlt import ldlt_num_neg_eigvals
+    from pygradflow_torch.parallel import BatchedSolver, MixedPrecisionSolver
+    from pygradflow_torch.runners.control import PendulumControl
+
+    import tests.torch_parity as tp
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(("rl", "ll", "rl_batched"), 0)
+    failures, parted = [], []
+
+    def check(ok, msg):
+        if not ok:
+            failures.append(msg)
+            print(f"precision FAILED: {msg}", flush=True)
+        return ok
+
+    def reset():
+        for key in lk.LAUNCHES:
+            lk.LAUNCHES[key] = 0
+
+    def launched(label, only):
+        used = dict(lk.LAUNCHES)
+        check(all((used[k] > 0) == (k in only) for k in used), f"{label}: launches {used}, expected only {sorted(only)}")
+        for k in totals:
+            totals[k] += used[k]
+        return used
+
+    def lanes(label, res, ref, tol):
+        """Lanes 0-7 against the CPU run: equal status, counts and x within
+        ``tol``; or, where f32 rounding parts a lane's counts (a lane whose
+        residual ends within rounding of opt_tol), both Optimal and x
+        within ``tol``, listed in ``parted``."""
+        x = res.x[:CPU_LANES].cpu().numpy()
+        for k in range(CPU_LANES):
+            ours = (int(res.status[k]), int(res.iterations[k]), int(res.accepted_steps[k]))
+            theirs = (ref["status"][k], ref["iterations"][k], ref["accepted"][k])
+            dx = float(np.abs(x[k] - ref["x"][k]).max())
+            check(ours[0] == theirs[0] == int(SolverStatus.Optimal) and dx <= tol,
+                  f"{label} lane {k}: {ours}, cpu {theirs}, |dx| {dx:.3e}")
+            if ours != theirs:
+                parted.append((f"{label} lane {k}", ours[1:], theirs[1:], dx))
+        dx = float(np.abs(x - ref["x"]).max())
+        optimal = int((res.status == int(SolverStatus.Optimal)).sum())
+        check(optimal == res.status.shape[0] and bool(torch.isfinite(res.x).all()),
+              f"{label}: {optimal}/{res.status.shape[0]} lanes Optimal")
+        return optimal, dx
+
+    with multiprocessing.get_context("spawn").Pool(3) as pool:
+        pending = {name: pool.apply_async(_precision_reference, (name,)) for name in PRECISION_RUNS}
+
+        # (a) bench.py's f32 headline, beside the f64 headline timed alike
+        rates = {}
+        x0 = None
+        for name in ("(a) f64", "(a) f32", "(b) mixed"):
+            kind, problem, params, starts = _precision_config(name)
+            x0 = torch.tensor(starts, device="cuda")
+            solver = (MixedPrecisionSolver(problem, params) if kind == "mixed" else BatchedSolver(problem, params))
+            reset()
+            res, rate = _solves_per_s(solver, x0)
+            launched(name, set())
+            rates[name] = rate
+            err = float((res.x - 1.0).abs().max())
+            limit = 1e-2 if name == "(a) f32" else 1e-4
+            check(err < limit, f"{name}: |x - 1| = {err:.3e}, bench.py's limit {limit}")
+            check(res.x.dtype == (torch.float32 if name == "(a) f32" else torch.float64), f"{name}: x of {res.x.dtype}")
+            if name == "(a) f64":
+                optimal = int((res.status == int(SolverStatus.Optimal)).sum())
+                check(optimal == HEADLINE_B, f"(a) f64: {optimal}/{HEADLINE_B} Optimal")
+                print(f"precision (a) f64 headline B={HEADLINE_B}: {optimal}/{HEADLINE_B} Optimal |x-1|={err:.3e} "
+                      f"solves/s={rate:.1f} (warm-up, min of 5) [{card}]", flush=True)
+                continue
+            ref = pending[name].get(timeout=900)
+            optimal, dx = lanes(name, res, ref, F32_X_TOL if name == "(a) f32" else X_TOL)
+            if name == "(a) f32":
+                jax_ok = [ref["iterations"][k] == JAX_F32_LANES[k] for k in range(CPU_LANES) if k != 6]
+                check(all(jax_ok) and ref["iterations"][6] == JAX_F32_SINGLE_LANE6,
+                      f"(a) f32: cpu lanes {ref['iterations']}, JAX {JAX_F32_LANES} (lane 6 single {JAX_F32_SINGLE_LANE6})")
+                jax = f"JAX lanes {JAX_F32_LANES}, lane 6 single {JAX_F32_SINGLE_LANE6}"
+            else:
+                check(ref["iterations"][:6] + ref["iterations"][7:] == JAX_MIXED_LANES[:6] + JAX_MIXED_LANES[7:],
+                      f"(b) mixed: cpu totals {ref['iterations']}, JAX {JAX_MIXED_LANES}")
+                bulk = solver.bulk_result.iterations[:CPU_LANES].tolist()
+                jax = f"JAX totals {JAX_MIXED_LANES}, bulk {bulk}, cpu bulk {ref['bulk']}"
+            print(
+                f"precision {name} B={HEADLINE_B}: {optimal}/{HEADLINE_B} Optimal |x-1|={err:.3e} lanes 0-7 "
+                f"{res.iterations[:CPU_LANES].tolist()} (cpu {ref['iterations']}; {jax}) |x-x_cpu|={dx:.3e} "
+                f"solves/s={rate:.1f} "
+                f"(warm-up, min of 5) vs f64 {rates['(a) f64']:.1f}: ratio {rate / rates['(a) f64']:.3f} "
+                f"cpu_wall={ref['wall']:.1f} s [{card}]",
+                flush=True,
+            )
+        print(f"precision headline solves/s f64 {rates['(a) f64']:.1f} f32 {rates['(a) f32']:.1f} "
+              f"mixed {rates['(b) mixed']:.1f} mixed/f64 {rates['(b) mixed'] / rates['(a) f64']:.3f} [{card}]", flush=True)
+
+        # (c) bench_hs.py's f32_4096_tol4 and mixed_16384 on HS71
+        for name, jax_lanes in (("(c) hs71 f32", JAX_HS71_F32_LANES), ("(c) hs71 mixed", JAX_HS71_MIXED_LANES)):
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, _ = _precision_solve(name, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched(name, set())
+            ref = pending[name].get(timeout=900)
+            optimal, dx = lanes(name, res, ref, F32_X_TOL if "f32" in name else X_TOL)
+            check(ref["iterations"] == jax_lanes, f"{name}: cpu lanes {ref['iterations']}, JAX {jax_lanes}")
+            B = res.status.shape[0]
+            print(f"precision {name} B={B}: success {optimal / B:.3f} lanes 0-7 {res.iterations[:CPU_LANES].tolist()} "
+                  f"(cpu {ref['iterations']}, equal to JAX's) |x-x_cpu|={dx:.3e} wall={wall:.3f} s "
+                  f"solves/s={B / wall:.1f} [{card}]", flush=True)
+
+        # (d) the pendulum at N=128 in f32 through B1', then its last KKT
+        # matrix against the plain version
+        kernel, kkt = lk.ldlt_factor_rl, []
+
+        def recording(a):
+            if a.is_cuda:
+                kkt[:] = [a.clone()]
+            return kernel(a)
+
+        name = "(d) pendulum f32"
+        lk.ldlt_factor_rl = recording
+        try:
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, _ = _precision_solve(name, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            lk.ldlt_factor_rl = kernel
+        used = launched(name, {"rl"})
+        ref = pending[name].get(timeout=900)
+        dx = float(np.abs(res.x.cpu().numpy() - ref["x"]).max())
+        counts = (res.iterations, res.num_accepted_steps)
+        check(res.status.name == ref["status"] == "Optimal" and res.x.dtype == torch.float32 and dx <= F32_X_TOL,
+              f"{name}: {res.status.name} {counts} x of {res.x.dtype} |x-x_cpu| {dx:.3e}, cpu {ref['status']}")
+        if counts != tuple(ref["counts"]):
+            parted.append((name, counts, tuple(ref["counts"]), dx))
+        print(f"precision {name} N={PRECISION_N}: {res.status.name} {res.iterations}/{res.num_accepted_steps} "
+              f"(cpu {'/'.join(map(str, ref['counts']))}) launches={used} |x-x_cpu|={dx:.3e} wall={wall:.3f} s "
+              f"ms/iter={1e3 * wall / res.iterations:.2f} [{card}]", flush=True)
+        a32 = kkt[0]
+        check(a32.dtype == torch.float32, f"{name}: the KKT matrix reached B1' as {a32.dtype}")
+        neg = int(ldlt_num_neg_eigvals(lk.ldlt_factor_rl_ref(a32.contiguous())))
+        _factor_check(f"kernel ldlt_factor_rl n={a32.shape[0]} (f32 KKT, last of phase 11 (d), {neg} negative)",
+                      kernel, lk.ldlt_factor_rl_ref, a32.to(torch.float64), neg, np.random.default_rng(SEED), card,
+                      lk.RL_BLOCK)
+
+        # (e) the mixed fleet: B2' in both stages
+        name = "(e) fleet mixed"
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, bulk = _precision_solve(name, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        used = launched(name, {"rl_batched"})
+        ref = pending[name].get(timeout=900)
+        optimal, dx = lanes(name, res, ref, X_TOL)
+        print(f"precision {name} N={FLEET_N} B={FLEET_B}: {optimal}/{FLEET_B} Optimal, lanes 0-7 totals "
+              f"{res.iterations[:CPU_LANES].tolist()} bulk {bulk.iterations[:CPU_LANES].tolist()} (cpu {ref['iterations']}"
+              f" bulk {ref['bulk']}) "
+              f"launches={used} |x-x_cpu|={dx:.3e} wall={wall:.3f} s solves/s={FLEET_B / wall:.1f} [{card}]",
+              flush=True)
+
+        # (f) checkpoint and resume at N=128 in f64, bit for bit
+        problem = PendulumControl(N=CHECKPOINT_N)
+        base = dict(linear_solver_type=LinearSolverType.PallasLDLT, iteration_limit=3000, validate_input=False)
+        x0 = torch.tensor(problem.x0_trajectory(), device="cuda")
+        full = Solver(problem, Params(**base)).solve(x0)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "state.npz")
+            cut = Solver(problem, Params(**{**base, "iteration_limit": 8}, jit_chunk=4)).solve(x0, checkpoint_path=path)
+            resumed = Solver(problem, Params(**base, jit_chunk=4)).solve(x0, checkpoint_path=path, resume=True)
+        same = (resumed.iterations, resumed.num_accepted_steps) == (full.iterations, full.num_accepted_steps)
+        bitwise = torch.equal(resumed.x, full.x) and torch.equal(resumed.y, full.y)
+        check(cut.iterations == 8 and same and bitwise and full.success,
+              f"(f) checkpoint: cut {cut.iterations}, resumed {resumed.iterations}/{resumed.num_accepted_steps}, "
+              f"full {full.iterations}/{full.num_accepted_steps}, bitwise {bitwise}")
+        print(f"precision (f) checkpoint N={CHECKPOINT_N}: cut at {cut.iterations} ({cut.status.name}), resumed "
+              f"{resumed.iterations}/{resumed.num_accepted_steps}, uninterrupted {full.iterations}/"
+              f"{full.num_accepted_steps}, x and y bit for bit: {bitwise} [{card}]", flush=True)
+
+        # (g) the display and the derivative checks on HS71
+        hs_x0 = torch.tensor([1.0, 5.0, 5.0, 1.0, 0.0], device="cuda")
+        rows = []
+
+        class Rows(logging.Handler):
+            def emit(self, record):
+                rows.append(record.getMessage())
+
+        handler, logger = Rows(), logging.getLogger("gradflow_torch")
+        walls = {}
+        for shown in (False, True, False, True):
+            params = Params(display=shown, display_interval=0.0)
+            rows.clear()
+            logger.addHandler(handler)
+            level = logger.level
+            logger.setLevel(logging.INFO)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = Solver(tp.HS71(), params).solve(hs_x0)
+                torch.cuda.synchronize()
+                walls[shown] = (time.perf_counter() - t0, res)
+            finally:
+                logger.removeHandler(handler)
+                logger.setLevel(level)
+            data = [r for r in rows if r.split() and r.split()[0].isdigit()]
+            check(len(data) == (res.iterations if shown else 0), f"(g) display={shown}: {len(data)} rows")
+        plain, shown = walls[False][1], walls[True][1]
+        check((shown.iterations, shown.num_accepted_steps) == (plain.iterations, plain.num_accepted_steps)
+              and torch.equal(shown.x, plain.x), "(g) display: the counts or x differ from the run without display")
+        Solver(tp.HS71(), Params(deriv_check=DerivCheck.CheckAll)).solve(hs_x0)
+        try:
+            Solver(tp.WrongGradient(), Params(deriv_check=DerivCheck.CheckFirst)).solve(torch.ones(2, device="cuda"))
+            check(False, "(g) a wrong gradient passed the derivative check")
+        except DerivError as e:
+            check(e.invalid_indices.tolist() == [[0, 1]], f"(g) invalid indices {e.invalid_indices.tolist()}")
+        print(f"precision (g) HS71 display: {plain.iterations}/{plain.num_accepted_steps} with and without, "
+              f"{shown.iterations} rows, ms/iter {1e3 * walls[True][0] / shown.iterations:.2f} shown, "
+              f"{1e3 * walls[False][0] / plain.iterations:.2f} not; CheckAll passed, a wrong gradient raised "
+              f"DerivError at [[0, 1]] [{card}]", flush=True)
+
+        # (h) multistart, (i) the continuous engine in f32
+        for name in ("(h) multistart", "(i) tame f32"):
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, _ = _precision_solve(name, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched(name, set())
+            ref = pending[name].get(timeout=900)
+            if name == "(h) multistart":
+                dobj = abs(float(res.obj) - ref["obj"])
+                check((res.best_index, res.num_optimal) == (ref["best"], ref["num_optimal"]) and dobj <= 1e-10,
+                      f"{name}: best {res.best_index} obj {float(res.obj):.12e} optimal {res.num_optimal}, "
+                      f"cpu {ref['best']} {ref['obj']:.12e} {ref['num_optimal']}")
+                print(f"precision {name} B={MULTISTART_B}: best lane {res.best_index} obj {float(res.obj):.12e} "
+                      f"(cpu equal, |dobj|={dobj:.1e}) optimal {res.num_optimal}/{MULTISTART_B} "
+                      f"x={res.x.tolist()} wall={wall:.3f} s [{card}]", flush=True)
+            else:
+                counts = (res.iterations, res.num_integration_steps, res.num_newton_steps)
+                dx = float(np.abs(res.x.cpu().numpy() - ref["x"]).max())
+                equal = counts == tuple(ref["counts"])
+                check(res.status.name == ref["status"] == "Optimal" and counts[0] == ref["counts"][0] and dx <= X_TOL
+                      and res.x.dtype == torch.float32,
+                      f"{name}: {res.status.name} {counts} x {res.x.dtype}, cpu {ref['status']} {ref['counts']}")
+                if not equal:
+                    parted.append((name, counts, tuple(ref["counts"]), dx))
+                print(f"precision {name}: {res.status.name} {'/'.join(map(str, counts))} (cpu "
+                      f"{'/'.join(map(str, ref['counts']))} {'equal' if equal else 'parted past the segments'}; "
+                      f"JAX {'/'.join(map(str, JAX_TAME_F32))}) |x-x_cpu|={dx:.3e} wall={wall:.3f} s "
+                      f"ms/step={1e3 * wall / counts[1]:.2f} [{card}]", flush=True)
+
+    for label, ours, theirs, dx in parted:
+        print(f"precision parted: {label} card {ours} cpu {theirs} |dx|={dx:.3e}", flush=True)
+    print(f"precision launches: {totals}", flush=True)
+    print(f"precision phase: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    if failures:
+        fail("phase 11: " + "; ".join(failures))
+    return totals
+
+
 def main():
     try:
         import torch
@@ -1493,12 +1935,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     card = device_phase()
+    device = dict(platform="gpu", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
     if sys.argv[1:] == ["--only", "10"]:  # the continuous engine alone, no kernel
         continuous_phase(card)
-        device = dict(platform="gpu", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
         print(json.dumps({"ok": True, "device": device}))
         return 0
     build_phase()
+    if sys.argv[1:] == ["--only", "11"]:  # the precision phase alone, after the build
+        precision_phase(card)
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     path = path_matrices("cuda")
     records = kernel_phase(card, path)
     two_level_phase(card, path)
@@ -1516,6 +1962,8 @@ def main():
     for key, count in last_options_phase(card).items():
         launches[key] += count
     continuous_phase(card)
+    for key, count in precision_phase(card).items():
+        launches[key] += count
 
     summary = []
     for key, (name, replaces) in KERNELS.items():
@@ -1532,7 +1980,6 @@ def main():
             )
         )
     print(json.dumps({"kernels": summary}))
-    device = dict(platform="gpu", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -3,8 +3,9 @@ ported to PyTorch and CUDA.
 
 The JAX package ``pygradflow_tpu`` is the reference; this package keeps its
 module names and its decisions, with plain torch functions on float64
-tensors, ``torch.func`` derivatives, an eager solve loop, and hand-written
-CUDA kernels where the JAX package has TPU kernels.  It imports no JAX and
+tensors (float32 under ``Precision.Single``), ``torch.func`` derivatives,
+an eager solve loop, and hand-written CUDA kernels where the JAX package
+has TPU kernels.  It imports no JAX and
 changes no global torch setting: every tensor gets an explicit dtype and the
 device chosen at ``Solver`` construction.
 """

@@ -75,7 +75,8 @@ class ConstrainedProblem(Problem):
             c = c + self._offsets(c).to(c.dtype)
         if self.num_slacks == 0:
             return c
-        return c.index_add(0, self._positions(x), -self.slack_vals(x))
+        # the slacks join c in its dtype, as JAX's scatter-add casts them
+        return c.index_add(0, self._positions(x), -self.slack_vals(x).to(c.dtype))
 
     def cons_jac(self, x, *args):
         jac = self.problem.cons_jac(self.orig_vals(x), *args)

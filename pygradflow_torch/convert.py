@@ -52,3 +52,10 @@ def params_from_jax(p) -> Params:
         value = getattr(p, field.name)
         values[field.name] = _convert(value, getattr(defaults, field.name))
     return Params(**values)
+
+
+def tensor_like(a, example):
+    """A tensor of ``example``'s dtype on its device from a numpy array (or
+    array-like): the values a snapshot of either package holds, in the
+    form of the leaf they restore."""
+    return torch.as_tensor(np.asarray(a), device=example.device).to(example.dtype)

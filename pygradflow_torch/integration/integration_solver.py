@@ -21,7 +21,8 @@ Three engines take the same decisions:
   (``flat_loop.py``).
 On a CUDA device each step attempt, bisection probe and work unit replays
 CUDA graphs (``integrator.graph_pair``, ``batch.FlatRunner``).
-``collect_path`` takes the host engine.
+``collect_path`` and ``display`` take the host engine, which logs one
+row per segment (``display.integrator_display``).
 """
 
 import math
@@ -30,13 +31,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..display import print_problem_stats
+from ..display import integrator_display, print_problem_stats
 from ..eval import validate_fns
 from ..iterate import bounds_dual, evaluate_iterate, is_feasible, locally_infeasible
 from ..log import logger
 from ..params import Params
 from ..result import SolverResult
-from ..solver import _check_supported, _resolve_device
+from ..solver import _resolve_device
 from ..status import SolverStatus
 from ..timer import Timer
 from ..transform import Transformation
@@ -57,7 +58,6 @@ class IntegrationSolver:
     def __init__(self, problem, params: Optional[Params] = None, device=None):
         if params is None:
             params = Params()
-        _check_supported(params)
         self.orig_problem = problem
         self.params = params
         self.device = _resolve_device(device)
@@ -128,7 +128,7 @@ class IntegrationSolver:
         if params.validate_input:
             validate_fns(self.fns, x, y)
 
-        if params.integration_device_loop and not params.collect_path:
+        if params.integration_device_loop and not params.collect_path and not params.display:
             return self._solve_device(x, y)
 
         print_problem_stats(problem, problem.num_vars, problem.num_cons)
@@ -151,6 +151,7 @@ class IntegrationSolver:
 
         timer = Timer(params.time_limit)
         iteration_limit = params.iteration_limit or params.iteration_limit_default
+        display = integrator_display(self.ctx.m, params) if params.display else None
 
         def scalar(v):
             return torch.tensor(v, dtype=z.dtype, device=z.device)
@@ -189,6 +190,14 @@ class IntegrationSolver:
             # horizon (t_end); after a real event the filter or rho changes
             # the dynamics, so restart conservatively
             h0 = max(float(seg.h), 1e-10) if seg_status == 1 else 1e-4
+
+            if display is not None and display.should_display():
+                values = [seg.t, fl.obj(self.ctx, seg.z), fl.residuum(self.ctx, seg.z, filter), filter.sum()]
+                t_seg, obj, res_seg, free = torch.stack([v.to(torch.float64) for v in values]).tolist()
+                display.row(
+                    dict(iter=iteration, t=t_seg, obj=obj, res=res_seg, rho=rho,
+                         steps=int(seg.num_steps), free=int(free))
+                )
 
             if seg_status == 2:
                 # integrator breakdown: treat as a failed solve

@@ -163,3 +163,29 @@ def locally_infeasible(it: Iterate, lb, ub, active_tol, feas_tol, local_infeas_t
     r = torch.where(aset.at_lower, torch.clamp(r, max=0.0), r)
     r = torch.where(aset.at_upper, torch.clamp(r, min=0.0), r)
     return (cons_violation(it) > feas_tol) & (inf_norm(r) <= local_infeas_tol)
+
+
+def obj_nonlin(it: Iterate, other: Iterate):
+    """Nonlinearity of the objective between two iterates (reference
+    ``iterate.py:183-190``): the first-order model's error over |dx|^2, 0
+    for a step close to 0."""
+    dx = other.x - it.x
+    pred = it.obj + dot(dx, it.obj_grad)
+    dx_dot = dot(dx, dx)
+    val = torch.abs(other.obj - pred) / torch.where(dx_dot == 0.0, 1.0, dx_dot)
+    return torch.where(torch.isclose(dx_dot, torch.zeros_like(dx_dot)), 0.0, val)
+
+
+def cons_nonlin(it: Iterate, other: Iterate, fns=None):
+    """The same for each constraint (reference ``iterate.py:192-198``); the
+    J dx product goes through ``fns.cons_jvp`` when ``fns`` is matrix-free."""
+    dx = other.x - it.x
+    if fns is not None and fns.matrix_free:
+        jdx = fns.cons_jvp(it.x, dx)
+    else:
+        jdx = matvec(it.cons_jac, dx)
+    pred = it.cons + jdx
+    dx_dot = dot(dx, dx)
+    val = (other.cons - pred) / lanes(torch.where(dx_dot == 0.0, 1.0, dx_dot), 1)
+    close = torch.isclose(dx_dot, torch.zeros_like(dx_dot))
+    return torch.where(lanes(close, 1), torch.zeros_like(val), val)

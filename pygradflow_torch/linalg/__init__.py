@@ -18,7 +18,8 @@ Each tier takes one matrix (n, n) or a lane stack (B, n, n):
   configurations carry over; on this port it is the hand-written-kernel
   mixed-precision tier: a packed f32 LDL^T from the CUDA kernels of
   ``csrc/ldlt.cu`` (their plain PyTorch versions for CPU tensors), checked
-  by a residual probe, then f64 iterative refinement.
+  by a residual probe, then iterative refinement in the matrix's dtype
+  (f64, or f32 under ``Precision.Single``).
 - ``LinearSolverType.MINRES`` (symmetric only) and ``LinearSolverType.GMRES``:
   the iterative solvers of ``minres.py`` and ``gmres.py`` on the assembled
   matrix, with the warm start a step solver passes as ``initial_sol``.

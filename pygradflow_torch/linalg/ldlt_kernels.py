@@ -184,9 +184,11 @@ def ldlt_factor_ll(mat):
 
 
 def refine_solve(packed_f32, mat_f64, rhs, iters: int = 3):
-    """Mixed-precision solve: f32 LDL^T back-solves, then ``iters`` f64
-    residual-refinement passes against the f64 matrix.  Takes one system
-    or a stack: ``rhs`` is (..., n) against (..., n, n)."""
+    """Mixed-precision solve: f32 LDL^T back-solves, then ``iters``
+    residual-refinement passes against the matrix in its own dtype: f64, or
+    f32 under ``Precision.Single``, as ``pallas_ldlt.py:243-257`` computes
+    it.  Takes one system or a stack: ``rhs`` is (..., n) against
+    (..., n, n)."""
     from ..util import matvec
     from .ldlt import ldlt_solve
 

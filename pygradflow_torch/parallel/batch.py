@@ -45,7 +45,7 @@ from ..iterate import (
 from ..params import Params
 from ..penalty import penalty_strategy
 from ..problem import Problem
-from ..solver import _check_supported, _resolve_device
+from ..solver import _resolve_device
 from ..status import RUNNING, SolverStatus
 from ..step.control import compute_step_lanes, make_control_cfg, make_controller
 from ..timer import Timer
@@ -122,7 +122,6 @@ class LaneLoop:
     The decisions are those of ``solver.SolveLoop``, taken per lane."""
 
     def __init__(self, transform: Transformation, params: Params, device):
-        _check_supported(params)
         self.transform = transform
         self.params = params
         problem = transform.trans_problem

@@ -2,9 +2,7 @@
 
 The same configuration surface as ``pygradflow_tpu.params``: every field,
 default and enum member, so that a configuration written for the JAX
-package carries over unchanged (``convert.params_from_jax``).  Fields that
-select a part of the solver this port does not have yet are accepted here
-and rejected with ``NotImplementedError`` where the solver is built.
+package carries over unchanged (``convert.params_from_jax``).
 """
 
 import dataclasses
@@ -272,8 +270,8 @@ class Params:
     O(stages) (`benchmarks/bench_control.py`)."""
 
     profile_dir: Optional[str] = None
-    """Trace directory of the JAX package's profiler.  Kept so that
-    configurations carry over; this port ignores it."""
+    """When set, ``Solver.solve`` runs under ``torch.profiler`` and writes
+    a Chrome trace of the solve into this directory."""
 
     newton_max_it: int = 10
     """Maximum inner Newton iterations of the Exact controller."""
@@ -340,6 +338,15 @@ class Params:
         if self.precision == Precision.Single:
             return torch.float32
         return torch.float64
+
+    @property
+    def scalar_type(self):
+        """The numpy type of a solve's scalars held on the host (lambda, rho,
+        the PI sum, the path length): each operation on it rounds to the
+        precision of ``dtype``, as the JAX package's 0-dim arrays do."""
+        if self.precision == Precision.Single:
+            return np.float32
+        return np.float64
 
     def annotations(self):
         return type(self).__annotations__.items()

@@ -152,8 +152,10 @@ class QuadraticProblem(Problem):
 
     ``Q``, ``c`` and ``A`` (numpy arrays or tensors) are kept as float64
     tensors, and each evaluation reads them on the device of its point, where
-    a copy is made once and kept.  The gradient, Jacobian and Hessian are
-    written out, so no autodiff runs for a QP."""
+    a copy is made once and kept.  A point of lower precision meets them in
+    float64, as JAX promotes it, and the solve casts the values back
+    (``eval.make_fns``).  The gradient, Jacobian and Hessian are written
+    out, so no autodiff runs for a QP."""
 
     def __init__(self, Q, c, A=None, cons_lb=None, cons_ub=None, var_lb=None, var_ub=None):
         self.Q = torch.as_tensor(Q, dtype=torch.float64)
@@ -175,16 +177,22 @@ class QuadraticProblem(Problem):
         else:
             super().__init__(var_lb, var_ub, cons_lb=cons_lb, cons_ub=cons_ub)
 
+    @staticmethod
+    def _promoted(x, data):
+        return x.to(torch.promote_types(x.dtype, data.dtype))
+
     def obj(self, x, *args):
         Q, c, _ = self._data(x)
+        x = self._promoted(x, Q)
         return 0.5 * torch.dot(x, Q @ x) + torch.dot(c, x)
 
     def obj_grad(self, x, *args):
         Q, c, _ = self._data(x)
-        return Q @ x + c
+        return Q @ self._promoted(x, Q) + c
 
     def cons(self, x, *args):
-        return self._data(x)[2] @ x
+        A = self._data(x)[2]
+        return A @ self._promoted(x, A)
 
     def cons_jac(self, x, *args):
         return self._data(x)[2]

@@ -7,32 +7,46 @@ same decisions in the same order: termination in the reference's priority
 (``check_terminate``), then one step with its penalty update and veto
 (``run_iteration``).  Scalars of the state are Python numbers, so each
 iteration synchronises with the device a few times; capturing the loop in
-a CUDA graph is later work.  The rcond estimate of the last step stays on
-the device until the solve ends.  With ``params.collect_path`` the
-accepted iterates go into a ring of ``path_capacity`` columns on the
-solver's device, with model times ``t += 1/lambda``.
+a CUDA graph is later work.  Lambda, rho, the PI sum and the path length
+are rounded to the solve's precision at each operation
+(``params.scalar_type``), as the JAX package's 0-dim arrays of
+``params.dtype`` are.  The rcond estimate of the last step stays on the
+device until the solve ends.  With ``params.collect_path`` the accepted
+iterates go into a ring of ``path_capacity`` columns on the solver's
+device, with model times ``t += 1/lambda``.
+
+The loop is cut into chunks of ``params.jit_chunk`` iterations, where the
+JAX package returns to the host: the time limit is checked there, and a
+``checkpoint.CheckpointManager`` writes its snapshot.  ``params.display``
+logs one row per iteration (``display.solver_display``), at the cost of one
+more host read when a row is shown.
 """
 
-from typing import Any, NamedTuple, Optional
+import os
+import time
+from typing import Any, NamedTuple
 
 import torch
 
 from .callbacks import Callbacks, CallbackType
-from .display import Format, print_problem_stats
+from .deriv_check import deriv_check_problem
+from .display import Format, print_problem_stats, solver_display
 from .eval import Counters, EvalError, diagnose_eval_failure, validate_fns
 from .iterate import (
     Iterate,
+    aug_lag,
     bounds_dual,
     cons_violation,
     evaluate_iterate,
     is_feasible,
     iterate_eval_counts,
     locally_infeasible,
+    obj_nonlin,
     stat_res,
     total_res,
 )
 from .log import logger
-from .params import DerivCheck, Params, PenaltyUpdate, Precision
+from .params import Params, PenaltyUpdate
 from .penalty import penalty_strategy
 from .problem import Problem
 from .result import SolverResult
@@ -54,30 +68,19 @@ class LoopState(NamedTuple):
     path_dist: float
     status: int
     counters: Counters
-    # (first_x, first_y, cand_x, cand_y) of the first candidate rejected for
-    # non-finite values, kept for the eval diagnosis (params.validate_input)
-    eval_fail: Optional[tuple]
+    # () or, under params.validate_input, (flag, first_x, first_y, cand_x,
+    # cand_y): whether a candidate was rejected for non-finite values, and
+    # the first such, kept for the eval diagnosis
+    eval_fail: tuple
     rcond: Any = float("nan")  # estimate of the most recent step
     # () or (buffer (cap, n+m), times (cap,), length): params.collect_path
     path: tuple = ()
-
-
-def _check_supported(params: Params) -> None:
-    unported = [
-        (params.precision != Precision.Double, "Precision.Single", "A7"),
-        (params.display, "the live display (params.display)", "A12"),
-        (params.deriv_check != DerivCheck.NoCheck, "derivative checks", "A12"),
-    ]
-    for cond, what, item in unported:
-        if cond:
-            raise NotImplementedError(f"{what} is not yet ported (ROADMAP {item})")
 
 
 class SolveLoop:
     """The solve loop for one (problem, params) pair on one device."""
 
     def __init__(self, transform: Transformation, params: Params, device, callbacks=None):
-        _check_supported(params)
         self.transform = transform
         self.params = params
         self.fns = transform.fns
@@ -97,19 +100,26 @@ class SolveLoop:
             self.iteration_limit = int(params.iteration_limit)
         else:
             self.iteration_limit = int(params.iteration_limit_default)
+        self.display = solver_display(self.m, params) if params.display else None
 
     def init_state(self, x, y) -> LoopState:
+        params = self.params
+        f = params.scalar_type
         rho0, pstate0 = self.penalty_initial()
         path = ()
-        if self.params.collect_path:
-            cap = self.params.path_capacity
+        if params.collect_path:
+            cap = params.path_capacity
             buf = torch.zeros((cap, self.n + self.m), dtype=x.dtype, device=x.device)
             buf[0] = torch.cat([x, y])
             path = (buf, torch.zeros(cap, dtype=x.dtype, device=x.device), 1)
+        eval_fail = ()
+        if params.validate_input:
+            zx, zy = torch.zeros_like(x), torch.zeros_like(y)
+            eval_fail = (False, zx, zy, zx, zy)
         return LoopState(
             it=evaluate_iterate(self.fns, x, y),
-            lamb=float(self.params.lamb_init),
-            rho=float(rho0),
+            lamb=float(f(params.lamb_init)),
+            rho=float(f(rho0)),
             error_sum=0.0,
             pstate=pstate0,
             iteration=0,
@@ -118,7 +128,7 @@ class SolveLoop:
             path_dist=0.0,
             status=RUNNING,
             counters=Counters.zero().add(**iterate_eval_counts(self.m)),
-            eval_fail=None,
+            eval_fail=eval_fail,
             path=path,
         )
 
@@ -163,17 +173,18 @@ class SolveLoop:
         pstate_n = pres.state if ctrl.accepted else state.pstate
         rho_n = pres.rho if accept else state.rho
 
+        f = self.params.scalar_type
         path_dist = state.path_dist
         if accept:
             primal, dual = torch.stack(
                 [torch.linalg.vector_norm(next_it.x - state.it.x),
                  torch.linalg.vector_norm(next_it.y - state.it.y)]
             ).tolist()
-            path_dist += primal + dual
+            path_dist = float(f(path_dist) + (f(primal) + f(dual)))
 
         eval_fail = state.eval_fail
-        if self.params.validate_input and not out.eval_ok and eval_fail is None:
-            eval_fail = (out.first_x, out.first_y, out.cand_x, out.cand_y)
+        if eval_fail and not out.eval_ok and not eval_fail[0]:
+            eval_fail = (True, out.first_x, out.first_y, out.cand_x, out.cand_y)
 
         if self.callbacks is not None and not self.callbacks.empty(CallbackType.ComputedStep):
             self.callbacks(
@@ -191,8 +202,8 @@ class SolveLoop:
             path = (buf, times, length + 1)
 
         # lambda blow-up (the reference raises, solver.py:323-326)
-        status = int(SolverStatus.LambdaLimit) if ctrl.lamb >= self.params.lamb_max else RUNNING
-        return LoopState(
+        status = int(SolverStatus.LambdaLimit) if f(ctrl.lamb) >= f(self.params.lamb_max) else RUNNING
+        state_n = LoopState(
             it=next_it if accept else state.it,
             lamb=ctrl.lamb,
             rho=rho_n,
@@ -208,11 +219,42 @@ class SolveLoop:
             rcond=ctrl.rcond,
             path=path,
         )
+        if self.display is not None and self.display.should_display():
+            self._emit_row(state, state_n, ctrl, accept)
+        return state_n
 
-    def run(self, state: LoopState, timer: Timer) -> LoopState:
-        """Iterate until a terminal status; the time limit is checked every
-        ``jit_chunk`` iterations, where the JAX package checks it."""
+    def _emit_row(self, state: LoopState, state_n: LoopState, ctrl, accept: bool) -> None:
+        """One display row (reference ``solver.py:288-343``): the values of
+        the iterate the step started from, the step to the candidate, and
+        the new lambda and rho; one host read."""
+        params = self.params
+        it, cand = state.it, ctrl.iterate
+        names = ["aug_lag", "obj", "cons_viol", "stat_res", "active", "obj_nonlin", "|dx|", "|dy|"]
+        values = [
+            aug_lag(it, state.rho),
+            it.obj,
+            cons_violation(it),
+            stat_res(it, self.lb, self.ub, params.active_tol, self.fns),
+            ctrl.active_set.sum(),
+            obj_nonlin(it, cand),
+            torch.linalg.vector_norm(cand.x - it.x),
+            torch.linalg.vector_norm(cand.y - it.y),
+        ]
+        if params.report_rcond:
+            names.append("rcond")
+            values.append(ctrl.rcond)
+        values = [torch.as_tensor(v, dtype=torch.float64, device=it.x.device) for v in values]
+        row = dict(zip(names, torch.stack(values).tolist()))
+        row.update(iter=state.iteration + 1, active=int(row["active"]), lamb=state_n.lamb, rho=state_n.rho, accept=accept)
+        self.display.row(row)
+
+    def run(self, state: LoopState, timer: Timer, ckpt=None) -> LoopState:
+        """Iterate until a terminal status.  Every ``jit_chunk`` iterations
+        from the state given, where the JAX package returns to the host,
+        ``ckpt`` (a ``checkpoint.CheckpointManager``) may write a snapshot
+        and the time limit is checked."""
         chunk = self.params.jit_chunk
+        chunk_end = state.iteration + chunk
         while True:
             status = self.check_terminate(state)
             if status != RUNNING:
@@ -220,8 +262,27 @@ class SolveLoop:
             state = self.run_iteration(state)
             if state.status != RUNNING:
                 return state
-            if state.iteration % chunk == 0 and timer.reached_time_limit():
-                return state._replace(status=int(SolverStatus.TimeLimit))
+            if state.iteration >= chunk_end:
+                chunk_end += chunk
+                if ckpt is not None:
+                    ckpt.maybe_save(state)
+                if timer.reached_time_limit():
+                    return state._replace(status=int(SolverStatus.TimeLimit))
+
+
+def _profiled(fn, trace_dir: str, device: torch.device):
+    """``fn()`` under ``torch.profiler``, with the card's activity when the
+    solve runs there; the Chrome trace goes into ``trace_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        out = fn()
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, f"solve_{os.getpid()}_{time.time_ns()}.pt.trace.json"))
+    return out
 
 
 def _resolve_device(device) -> torch.device:
@@ -265,8 +326,12 @@ class Solver:
         self._loop = SolveLoop(self.transform, params, self.device, self.callbacks)
 
     def solve(self, x0=None, y0=None, checkpoint_path=None, resume=False) -> SolverResult:
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError("checkpointing is not yet ported (ROADMAP A12)")
+        """Solve the problem.  With ``checkpoint_path`` the loop state is
+        written there (``checkpoint.py``) every ``jit_chunk`` iterations;
+        ``resume=True`` starts from the snapshot found there, and the solve
+        goes on bit for bit as the uninterrupted one would.  A snapshot of
+        the JAX package's loop resumes here too.  ``params.profile_dir``
+        traces the solve with ``torch.profiler`` into that directory."""
         params = self.params
         loop = self._loop
 
@@ -280,16 +345,34 @@ class Solver:
 
         print_problem_stats(self.problem, loop.n, loop.m)
 
+        deriv_check_problem(self.problem, params, x, y)
+
         timer = Timer(params.time_limit)
-        state = loop.run(loop.init_state(x, y), timer)
+
+        ckpt = None
+        if checkpoint_path is not None:
+            from .checkpoint import CheckpointManager
+
+            ckpt = CheckpointManager(checkpoint_path)
+
+        def drive():
+            state0 = loop.init_state(x, y)
+            if ckpt is not None and resume and ckpt.exists():
+                state0 = ckpt.restore(state0)
+            return loop.run(state0, timer, ckpt)
+
+        if params.profile_dir:
+            state = _profiled(drive, params.profile_dir, self.device)
+        else:
+            state = drive()
         total_time = timer.elapsed()
         status = SolverStatus(state.status)
 
         failed_component, fail_x = None, None
-        if state.eval_fail is not None:
+        if state.eval_fail and state.eval_fail[0]:
             # replay the user callbacks at the first rejected candidate,
             # then at the final one, and name the one that failed
-            first_x, first_y, cand_x, cand_y = state.eval_fail
+            first_x, first_y, cand_x, cand_y = state.eval_fail[1:]
             for fail_x, fail_y in ((first_x, first_y), (cand_x, cand_y)):
                 failed_component = diagnose_eval_failure(self.transform.fns, fail_x, fail_y)
                 if failed_component is not None:

@@ -53,11 +53,14 @@ def make_box_reduced(cfg: ControlCfg, lanes_form: bool = False):
         return H + lanes(lamb, 2) * eye + lanes(cons_factor, 2) * (jac.mT @ jac)
 
     def step(orig: Iterate, lamb, rho, error_sum, counters: Counters) -> ControlResult:
+        # one instance: lambda and rho as 0-dim CPU tensors of the solve's
+        # dtype, so that 1/lambda + rho rounds as the JAX package's does
+        lam, rh = (lamb, rho) if lanes_form else (torch.tensor(v, dtype=lb.dtype) for v in (lamb, rho))
         result = solve_box_constrained(
             orig.x,
-            lambda x: objective(orig, x, lamb, rho),
-            lambda x: gradient(orig, x, lamb, rho),
-            lambda x: hessian(orig, x, lamb, rho),
+            lambda x: objective(orig, x, lam, rh),
+            lambda x: gradient(orig, x, lam, rh),
+            lambda x: hessian(orig, x, lam, rh),
             lb,
             ub,
             obj_lower=params.obj_lower_limit,

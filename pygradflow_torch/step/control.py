@@ -32,17 +32,19 @@ the candidate; :func:`compute_step` turns that into a rejected step with
 doubled lambda.
 """
 
-from typing import Any, NamedTuple
-
+import logging
 import math
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 from torch.func import vmap
 
 from .. import implicit_func as impl
+from ..display import inner_display
 from ..eval import Counters
 from ..iterate import Iterate, aug_lag_deriv_x, evaluate_iterate, iterate_eval_counts
+from ..log import logger
 from ..newton import NewtonCfg, make_newton
 from ..params import ActiveSetType, Params, StepControlType
 from ..util import select
@@ -130,15 +132,20 @@ def compute_tau(cfg: ControlCfg, it: Iterate, lamb, rho):
 
 
 def _pi_accept(params: Params, lamb, theta, error_sum):
-    with np.errstate(over="ignore"):
-        error = np.log(params.theta_ref) - np.log(np.float64(theta))
-        es_n = error_sum + error
-        lamb_mod = np.exp(params.K_P * error + params.K_I * es_n)
-    return float(np.maximum(params.lamb_min, lamb / lamb_mod)), float(es_n)
+    """The PI update of one accepted step; the arithmetic rounds to the
+    solve's precision (``params.scalar_type``) at each operation."""
+    f = params.scalar_type
+    with np.errstate(over="ignore", divide="ignore"):
+        error = f(np.log(params.theta_ref)) - np.log(f(theta))
+        es_n = f(error_sum) + error
+        lamb_mod = np.exp(f(params.K_P) * error + f(params.K_I) * es_n)
+        lamb_n = np.maximum(f(params.lamb_min), f(lamb) / lamb_mod)
+    return float(lamb_n), float(es_n)
 
 
 def _pi_reject(params: Params, lamb, error_sum):
-    return lamb * params.lamb_inc, (0.0 if error_sum > 0.0 else error_sum)
+    f = params.scalar_type
+    return float(f(lamb) * f(params.lamb_inc)), (0.0 if error_sum > 0.0 else error_sum)
 
 
 def _pi_lanes(params: Params, lamb, theta, error_sum, accepted):
@@ -157,7 +164,31 @@ def _reduced_lamb(params: Params, lamb):
     """lambda after a first Newton step that converged."""
     if torch.is_tensor(lamb):
         return torch.clamp(lamb * params.lamb_red, min=params.lamb_min)
-    return float(np.maximum(lamb * params.lamb_red, params.lamb_min))
+    f = params.scalar_type
+    return float(np.maximum(f(lamb) * f(params.lamb_red), f(params.lamb_min)))
+
+
+def _inner_debug(cfg: ControlCfg, lanes: bool = False):
+    """The per-inner-Newton-iteration DEBUG rows (reference
+    ``step_control.py:109-120`` and ``display.py:307-315``), or ``None``.
+    The gate, ``params.display`` and a log level of DEBUG or below, is
+    decided once, when the controller is built: with it off the loop does
+    no display work.  Each row reads (residual, step distance, active-set
+    size) on the host.  A lane stack shows no rows (``BatchedSolver``
+    refuses ``display``)."""
+    if lanes or not cfg.params.display or logger.getEffectiveLevel() > logging.DEBUG:
+        return None
+
+    disp = inner_display(cfg.params)
+
+    def emit(i, residuum, dist, active_set):
+        res, dist, active = torch.stack(
+            [torch.as_tensor(v, dtype=torch.float64, device=active_set.device)
+             for v in (residuum, dist, active_set.sum())]
+        ).tolist()
+        disp.row({"inner": int(i), "residuum": res, "dist": dist, "active": int(active)})
+
+    return emit
 
 
 def _evaluate(cfg: ControlCfg, xn, yn, counters: Counters):
@@ -177,6 +208,7 @@ def _start(cfg: ControlCfg, orig: Iterate, lamb, rho, counters):
 
 def _distance_ratio(cfg: ControlCfg):
     params = cfg.params
+    emit = _inner_debug(cfg)
 
     def step(orig: Iterate, lamb, rho, error_sum, counters) -> ControlResult:
         carry, func, counters = _start(cfg, orig, lamb, rho, counters)
@@ -187,6 +219,8 @@ def _distance_ratio(cfg: ControlCfg):
             [impl.value_norm(func, mid_it, rho, fns=cfg.fns), step1.diff]
         ).tolist()
         first = (mid_it.x, mid_it.y)
+        if emit is not None:
+            emit(0, mid_norm, diff1, step1.active_set)
 
         conv1 = mid_norm <= params.newton_tol
         zero1 = diff1 == 0.0
@@ -199,16 +233,19 @@ def _distance_ratio(cfg: ControlCfg):
         step2, _, counters = cfg.newton_step(carry, mid_it, counters)
         fin_it, counters = _evaluate(cfg, step2.xn, step2.yn, counters)
         diff2 = step2.diff.item()
+        if emit is not None:
+            emit(1, impl.value_norm(func, fin_it, rho, fns=cfg.fns), diff2, step2.active_set)
 
         if diff2 == 0.0:  # zero second step: accept at unchanged lambda
             return ControlResult(
                 fin_it, lamb, True, error_sum, step2.active_set, counters, step2.rcond, first
             )
 
-        theta = diff2 / diff1
-        accepted = theta <= params.theta_max
+        f = params.scalar_type
+        theta = f(diff2) / f(diff1)
+        accepted = bool(theta <= f(params.theta_max))
         if accepted:
-            lamb_n, es_n = _pi_accept(params, lamb, max(theta, 1e-300), error_sum)
+            lamb_n, es_n = _pi_accept(params, lamb, np.maximum(theta, f(1e-300)), error_sum)
         else:
             lamb_n, es_n = _pi_reject(params, lamb, error_sum)
         return ControlResult(
@@ -265,12 +302,15 @@ def _residuum_ratio(cfg: ControlCfg, lanes: bool):
     body on tensors for both forms; one instance reads its decision with
     one host read, its lambda and PI sum going in as 0-dim CPU tensors."""
     params = cfg.params
+    emit = _inner_debug(cfg, lanes)
 
     def step(orig: Iterate, lamb, rho, error_sum, counters) -> ControlResult:
         carry, func, counters = _start(cfg, orig, lamb, rho, counters)
         step1, _, counters = cfg.newton_step(carry, orig, counters)
         mid_it, counters = _evaluate(cfg, step1.xn, step1.yn, counters)
         mid_norm = impl.value_norm(func, mid_it, rho, fns=cfg.fns)
+        if emit is not None:
+            emit(0, mid_norm, step1.diff, step1.active_set)
         orig_norm = impl.value_norm(func, orig, rho, fns=cfg.fns)
         if not lanes:
             lamb, error_sum = (torch.tensor(v, dtype=mid_norm.dtype) for v in (lamb, error_sum))
@@ -299,6 +339,7 @@ def _exact(cfg: ControlCfg, lanes: bool):
     ``rate_bound`` per step or non-finite (reference ``exact_control.py``)."""
     params = cfg.params
     rate_bound = 0.5
+    emit = _inner_debug(cfg, lanes)
 
     def step(orig: Iterate, lamb, rho, error_sum, counters) -> ControlResult:
         carry, func, counters = _start(cfg, orig, lamb, rho, counters)
@@ -314,6 +355,8 @@ def _exact(cfg: ControlCfg, lanes: bool):
             step_i, carry, counters_n = cfg.newton_step(carry, it, counters)
             next_it, counters_n = _evaluate(cfg, step_i.xn, step_i.yn, counters_n)
             next_val = impl.value_norm(func, next_it, rho, fns=cfg.fns)
+            if emit is not None:
+                emit(i, next_val, step_i.diff, step_i.active_set)
             converged = next_val <= params.newton_tol
             rate_bad = next_val / torch.where(val == 0.0, 1.0, val) > rate_bound
             bad = (~converged & rate_bad) | ~torch.isfinite(next_val)
@@ -347,12 +390,15 @@ def _fixed(cfg: ControlCfg, lanes: bool):
     """One Newton step, always accepted, lambda back at ``lamb_init``
     (reference ``fixed_control.py``)."""
     params = cfg.params
+    emit = _inner_debug(cfg, lanes)
 
     def step(orig: Iterate, lamb, rho, error_sum, counters) -> ControlResult:
-        carry, _, counters = _start(cfg, orig, lamb, rho, counters)
+        carry, func, counters = _start(cfg, orig, lamb, rho, counters)
         step1, _, counters = cfg.newton_step(carry, orig, counters)
         mid_it, counters = _evaluate(cfg, step1.xn, step1.yn, counters)
-        lamb_n, accepted = float(params.lamb_init), True
+        if emit is not None:
+            emit(0, impl.value_norm(func, mid_it, rho, fns=cfg.fns), step1.diff, step1.active_set)
+        lamb_n, accepted = float(params.scalar_type(params.lamb_init)), True
         if lanes:
             lamb_n = torch.full_like(lamb, params.lamb_init)
             accepted = torch.ones_like(lamb, dtype=torch.bool)

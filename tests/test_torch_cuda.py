@@ -371,3 +371,64 @@ def test_integration_solver_defaults_to_cuda(cuda):
                                                                          torch.zeros(2, dtype=torch.float64))
     assert (res.status, res.iterations, res.num_integration_steps, res.num_newton_steps) == (
         cpu.status, cpu.iterations, cpu.num_integration_steps, cpu.num_newton_steps)
+
+
+SINGLE = dict(precision="Single", opt_tol=1e-4, lamb_min=1e-6)
+
+
+@pytest.mark.parametrize("case", ["hs71", "pendulum"])
+def test_single_solver_on_cuda_matches_cpu(cuda, case):
+    """An f32 solve on the card (HS71 on the LU tier; the pendulum at N=16
+    through B1' on f32 matrices with f32 refinement) takes the CPU run's
+    steps and stays f32; x within 1e-2, the tolerance of the pendulum's f32
+    solves against the JAX package's (``test_torch_precision.py``)."""
+    from .torch_parity import HS71
+
+    if case == "hs71":
+        problem, params, x0 = HS71(), Params(**SINGLE), np.array([1.0, 5.0, 5.0, 1.0, 0.0])
+    else:
+        problem = PendulumControl(N=16)
+        params = Params(linear_solver_type=LinearSolverType.PallasLDLT, iteration_limit=3000,
+                        validate_input=False, **SINGLE)
+        x0 = problem.x0_trajectory()
+    before = lk.LAUNCHES["rl"]
+    ours = Solver(problem, params).solve(torch.tensor(x0, device=cuda))
+    cpu = Solver(problem, params, device="cpu").solve(torch.tensor(x0))
+    assert ours.x.dtype == torch.float32 and ours.x.device.type == "cuda"
+    assert (ours.status, ours.iterations, ours.num_accepted_steps) == (cpu.status, cpu.iterations, cpu.num_accepted_steps)
+    np.testing.assert_allclose(ours.x.cpu().numpy(), cpu.x.numpy(), rtol=0, atol=1e-2)
+    assert (lk.LAUNCHES["rl"] > before) == (case == "pendulum")
+
+
+def test_checkpoint_resume_on_cuda_is_bitwise(cuda, tmp_path):
+    """On the card an interrupted solve resumed from its snapshot equals the
+    uninterrupted one bit for bit; a snapshot written on the CPU restores
+    on the card to the CPU state's bits, and the card goes on from it to
+    the CPU run's counts."""
+    from pygradflow_torch.checkpoint import load_state
+
+    from .torch_parity import Rosenbrock
+
+    x0 = np.array([-1.2, 1.0])
+    full = Solver(Rosenbrock(), Params()).solve(torch.tensor(x0, device=cuda))
+    path = str(tmp_path / "card.npz")
+    Solver(Rosenbrock(), Params(jit_chunk=4, iteration_limit=12)).solve(torch.tensor(x0, device=cuda), checkpoint_path=path)
+    resumed = Solver(Rosenbrock(), Params(jit_chunk=4)).solve(torch.tensor(x0, device=cuda), checkpoint_path=path,
+                                                                resume=True)
+    assert (resumed.iterations, resumed.num_accepted_steps) == (full.iterations, full.num_accepted_steps)
+    assert torch.equal(resumed.x, full.x) and torch.equal(resumed.y, full.y)
+
+    cpu_path = str(tmp_path / "cpu.npz")
+    cpu_full = Solver(Rosenbrock(), Params(), device="cpu").solve(torch.tensor(x0))
+    Solver(Rosenbrock(), Params(jit_chunk=4, iteration_limit=12), device="cpu").solve(torch.tensor(x0),
+                                                                                     checkpoint_path=cpu_path)
+    solver = Solver(Rosenbrock(), Params(jit_chunk=4))
+    x, y = solver.transform.create_transformed_initial(x0, None, solver.device)
+    state = load_state(cpu_path, solver._loop.init_state(x, y))
+    with np.load(cpu_path) as data:
+        assert torch.equal(state.it.x.cpu(), torch.tensor(data["leaf.it.x"]))
+        assert state.lamb == float(data["leaf.lamb"]) and state.iteration == 12
+    on_card = solver.solve(torch.tensor(x0, device=cuda), checkpoint_path=cpu_path, resume=True)
+    assert on_card.x.device.type == "cuda"
+    assert (on_card.iterations, on_card.num_accepted_steps) == (cpu_full.iterations, cpu_full.num_accepted_steps)
+    np.testing.assert_allclose(on_card.x.cpu().numpy(), cpu_full.x.numpy(), rtol=0, atol=1e-8)

@@ -200,14 +200,20 @@ def test_iteration_limit_matches_jax():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        (dict(precision=Precision.Single), "A7"),
+        (dict(precision=Precision.Single, opt_tol=1e-4, lamb_min=1e-6), "A7"),
         (dict(display=True), "A12"),
         (dict(deriv_check=DerivCheck.CheckFirst), "A12"),
     ],
 )
 def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        IntegrationSolver(HS71Explicit(), Params(**kwargs), device="cpu")
+    """The options that raised naming ROADMAP A7 and A12 until they were
+    ported: each now builds on HS71 and solves Tame to Optimal."""
+    IntegrationSolver(HS71Explicit(), Params(**kwargs), device="cpu")
+    res = IntegrationSolver(TameExplicit(), Params(**BASE, **kwargs), device="cpu").solve(
+        tensor([0.0, 0.0]), tensor([0.0])
+    )
+    assert res.status.name == "Optimal"
+    assert res.x.dtype == Params(**kwargs).dtype
 
 
 def test_sharded_solver_names_its_item():

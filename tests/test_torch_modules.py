@@ -209,21 +209,43 @@ def test_import_leaves_jax_out():
         (dict(ANCHOR, display=True), "A12"),
         (dict(ANCHOR, deriv_check="CheckFirst"), "A12"),
         (dict(ANCHOR, deriv_check="CheckAll"), "A12"),
-        (dict(ANCHOR, precision="Single"), "A7"),
-        (dict(ANCHOR, precision="Single", step_control_type="BoxReduced"), "A7"),
+        (dict(ANCHOR, precision="Single", opt_tol=1e-4, lamb_min=1e-6), "A7"),
+        (
+            dict(ANCHOR, precision="Single", step_control_type="BoxReduced", opt_tol=1e-4, lamb_min=1e-6,
+                 iteration_limit=5),
+            "A7",
+        ),
     ],
 )
 def test_unported_configurations_raise(kwargs, item):
-    _, tp = params_pair(**kwargs)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        pygradflow_torch.Solver(TPendulum(N=2), tp, device="cpu")
+    """The configurations that raised naming ROADMAP A7 and A12 until they
+    were ported now solve the smallest pendulum with the status and counts
+    of the JAX package, in the precision asked for: to Optimal, but under
+    BoxReduced in f32, which stops in neither package (IterationLimit)."""
+    jp, tp = params_pair(**kwargs)
+    x0 = TPendulum(N=2).x0_trajectory()
+    jr = pygradflow_tpu.Solver(JPendulum(N=2), jp).solve(x0)
+    tr = pygradflow_torch.Solver(TPendulum(N=2), tp, device="cpu").solve(tensor(x0))
+    boxed = kwargs.get("step_control_type") == "BoxReduced"
+    assert tr.status.name == jr.status.name == ("IterationLimit" if boxed else "Optimal")
+    assert (tr.iterations, tr.num_accepted_steps) == (jr.iterations, jr.num_accepted_steps)
+    assert tr.x.dtype == tp.dtype
 
 
-def test_checkpointing_raises():
+def test_checkpointing_raises(tmp_path):
+    """Checkpointing, which raised until it was ported, resumes the
+    smallest pendulum bit for bit."""
     _, tp = params_pair(**ANCHOR)
-    solver = pygradflow_torch.Solver(TPendulum(N=2), tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        solver.solve(TPendulum(N=2).x0_trajectory(), checkpoint_path="unused")
+    x0 = tensor(TPendulum(N=2).x0_trajectory())
+    path = str(tmp_path / "state.npz")
+    full = pygradflow_torch.Solver(TPendulum(N=2), tp, device="cpu").solve(x0)
+    cut = dataclasses.replace(tp, jit_chunk=2, iteration_limit=4)
+    pygradflow_torch.Solver(TPendulum(N=2), cut, device="cpu").solve(x0, checkpoint_path=path)
+    resumed = pygradflow_torch.Solver(TPendulum(N=2), dataclasses.replace(tp, jit_chunk=2), device="cpu").solve(
+        x0, checkpoint_path=path, resume=True
+    )
+    assert (resumed.iterations, resumed.num_accepted_steps) == (full.iterations, full.num_accepted_steps)
+    assert torch.equal(resumed.x, full.x)
 
 
 @pytest.mark.parametrize(

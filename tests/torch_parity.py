@@ -240,6 +240,32 @@ class Tame(Problem):
         return (z[0] + z[1] - 1.0)[None]
 
 
+class FourWells(Problem):
+    """``(x0^2 - 1)^2 + (x1^2 - 1)^2 + 0.1 x0 + 0.05 x1`` on [-2, 2]^2: four
+    local minima near (+-1, +-1), of four different objectives, for the
+    multi-start tests (its JAX twin is in ``test_torch_mixed_multistart.py``)."""
+
+    def __init__(self):
+        super().__init__(np.full(2, -2.0), np.full(2, 2.0))
+
+    def obj(self, x):
+        return (x[0] ** 2 - 1.0) ** 2 + (x[1] ** 2 - 1.0) ** 2 + 0.1 * x[0] + 0.05 * x[1]
+
+
+class WrongGradient(Problem):
+    """``x^T x`` whose written-out gradient is wrong in entry 1, for the
+    derivative checks (``tests/test_solver.py``'s ``WrongGrad``)."""
+
+    def __init__(self):
+        super().__init__(np.array([-np.inf] * 2), np.array([np.inf] * 2))
+
+    def obj(self, x):
+        return torch.dot(x, x)
+
+    def obj_grad(self, x):
+        return 2.0 * x + torch.tensor([0.0, 3.0], dtype=x.dtype, device=x.device)
+
+
 class _HSTwin(Problem):
     """A Hock-Schittkowski problem of ``pygradflow_tpu/runners/hs.py``,
     written again with torch operations (its bounds, start point and
