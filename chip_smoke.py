@@ -69,7 +69,8 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    ActiveSet Newton and the LagrangianFilter, the Exact control, and
    Globalized Newton (20 iterations), its first 8 lanes; (e)
    ``QuadraticProblem``, the boxed Laplacian QP at n = 1000 (m = 0, B1'
-   only) under ActiveSet Newton; each against the port's CPU run.  The
+   only) under ActiveSet Newton; each against the port's CPU run, which
+   worker processes compute while the card runs.  The
    last KKT matrix that (e) hands B1' is then held against the plain
    version as in phase 3, with ``torch.linalg.cholesky`` as its yardstick;
 9. last options: the discrete loop's last options on the card, each run
@@ -82,12 +83,12 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    estimate adds solves, not factors); (b) ``collect_path`` at N = 128, the
    path's accepted + 1 columns and model times equal to the CPU run's to
    1e-6; (c) the Symmetric step solver with MINRES at N = 128 and with
-   GMRES at N = 64 (no kernel); (d) ``BatchedSolver`` on 16384 lanes of
+   GMRES at N = 32 (no kernel); (d) ``BatchedSolver`` on 16384 lanes of
    Rosenbrock under the Optimizing and the BoxReduced controls, every lane
    Optimal, with the inner loops' host reads per outer iteration; (e)
    phase 5's fleet with ``report_rcond`` (B2' only), rcond of lanes 0-7
    equal to the CPU run's to 1e-8 relative; (f) BoxReduced on the boxed
-   Laplacian QP at n = 250 (the reduced Hessian through the plain LU, no
+   Laplacian QP at n = 150 (the reduced Hessian through the plain LU, no
    kernel).  The CPU references run in worker processes while the card
    runs;
 10. continuous: the continuous engine (``pygradflow_torch.integration``)
@@ -128,7 +129,31 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    ``DerivError``; (h) ``multistart_solve`` on 1024 starts of a four-well
    problem (best lane and objective); (i) ``IntegrationSolver`` in f32 on
    Tame.  ``python3 chip_smoke.py --only 11`` runs the build and this
-   phase alone.
+   phase alone;
+12. multi-device: the multi-device frontends and the runners on the card,
+   every mesh a repetition of the one card: (a) ``ShardedSolver`` on phase
+   6's 16384 Rosenbrock lanes over 1 and 4 shards, every lane bit for bit
+   ``BatchedSolver``'s with and without compaction, solves/s beside it;
+   (a2) phase 5's fleet over 2 shards (B2' only), status and counts of
+   phase 5's lanes and x within 1e-6, its bits reported (batched cuBLAS
+   products choose their algorithms by batch count); (b)
+   ``DistributedSolver`` with 2 ranks sharing the card over gloo and 1 rank
+   under NCCL, each rank's full result bit for bit (a)'s; (c)
+   ``distributed_schur_solve`` at 512 blocks of 8 and m = 1024 over 4
+   shards within rtol 1e-9, atol 1e-10 of a dense f64 solve; (d)
+   ``ShardedIntegrationSolver`` on phase 10's 1024 lanes over 4 shards, bit
+   for bit phase 10's; (e) the 80 HS specs through ``hs_runner --parallel
+   4`` on the card (hs104 and hs106, 10,000 iterations each, dispatched
+   first: ``tools/hs_long_first.py``) against the port's CPU sweep (in
+   sequence), both
+   started in the background after phase 3 (a child takes seconds to reach the card, and
+   hs104 and hs106 run 10,000 iterations each): statuses, counts and the
+   objective within 1e-6, where a run of at least 1,000 iterations or a
+   spec that rounding parts between the packages may part in its counts
+   (listed); (f) ``QPRunner`` and ``MPSRunner`` on an inline MPS file,
+   the native reader equal to the Python one, each row against the CPU
+   run.  ``python3 chip_smoke.py --only 12`` runs the build and this phase
+   alone.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
@@ -776,6 +801,7 @@ def fleet_phase(card):
             flush=True,
         )
         PHASE_MS[("fleet", FLEET_N)] = 1e3 * wall / iters
+    REFERENCES["fleet"] = res
     used = dict(lk.LAUNCHES)
     if used["rl_batched"] == 0 or used["rl"] != 0 or used["ll"] != 0:
         fail(f"fleet: launches {used}, expected only 'rl_batched'")
@@ -814,10 +840,12 @@ def headline_phase(card):
             flush=True,
         )
         PHASE_MS["headline"] = 1e3 * wall / int(res.iterations.max())
+        REFERENCES["headline"], REFERENCES["headline wall"] = res, wall
 
     # compaction only permutes lanes; batched BLAS may pick other algorithms
     # at other widths, so x is held to X_TOL and its bitwise equality reported
     plain = BatchedSolver(Rosenbrock(), params, device="cuda", compact=False).solve(x0_dev)
+    REFERENCES["headline plain"] = plain
     shrunk = BatchedSolver(Rosenbrock(), params, device="cuda", compact=True, harvest_chunk=8).solve(x0_dev)
     for field in ("status", "iterations", "accepted_steps"):
         if not torch.equal(getattr(plain, field), getattr(shrunk, field)):
@@ -929,113 +957,141 @@ OPTIONS_N, OPTIONS_LL_N, OPTIONS_QP_N = 128, 256, 1000
 OPTIONS_GLOBALIZED_FLEET_IT = 20
 
 
-def options_phase(card):
-    """Phase 8: the options of the discrete loop on the card, each run held
-    against the run named beside it (status and counts equal, x to X_TOL
-    when Optimal) with only the kernel named launched: (a) Newton types and
-    (b) controls, penalties and GradJac scaling on the pendulum at N = 128
-    (B1'), (c) Full Newton at N = 256 (B3'), (d) the N = 64 fleet of 128
-    lanes under ActiveSet Newton and the LagrangianFilter (B2'), (e) the
-    boxed QP at n = 1000 under ActiveSet Newton (B1'); each against the
-    port's CPU run.  Returns the launches of the card runs."""
-    import numpy as np
-    import torch
+OPTIONS_RUNS = [
+    "(a) Full", "(a) ActiveSet", "(a) Globalized", "(b) ParetoDecrease", "(b) LagrangianFilter",
+    "(b) ResiduumRatio", "(b) Exact", "(b) GradJac", "(c) Full", "(d) ActiveSet+LagrangianFilter", "(d) Exact",
+    "(d) Globalized", "(e) QP",
+]
+"""Phase 8's runs in the card's order; the CPU references start longest
+first, the QP's."""
 
-    from pygradflow_torch import LinearSolverType, Params, SolverStatus
-    from pygradflow_torch.linalg import ldlt_kernels as lk
+
+def _options_config(name):
+    """Problem, params, start points and whether it is a batch, of the phase
+    8 run ``name``; the card and the CPU reference build it alike."""
+    import numpy as np
+
+    from pygradflow_torch import LinearSolverType, Params
     from pygradflow_torch.runners.control import PendulumControl
 
     pallas = dict(linear_solver_type=LinearSolverType.PallasLDLT, iteration_limit=3000, validate_input=False)
-    totals = dict.fromkeys(("rl", "ll", "rl_batched"), 0)
-
-    def single(label, problem, kwargs, x0, only):
-        """A card solve against the port's CPU run."""
-        res, used, wall = _solve_once(problem, Params(**kwargs), "cuda", x0)
-        _expect_launches(label, used, only)
-        ref, _, cpu_wall = _solve_once(problem, Params(**kwargs), "cpu", x0)
-        dx = _hold(label, res, ref, "cpu", require_optimal=False)
-        launches = sum(used.values())
-        print(
-            f"options {label}: {res.status.name} {res.iterations}/{res.num_accepted_steps} launches={used} "
-            f"launches/iter={launches / res.iterations:.2f} |x-x_cpu|={dx:.3e} wall={wall:.3f} s "
-            f"ms/iter={1e3 * wall / res.iterations:.2f} cpu_wall={cpu_wall:.3f} s [{card}]",
-            flush=True,
-        )
-        for k in totals:
-            totals[k] += used[k]
-
-    problem = PendulumControl(N=OPTIONS_N)
-    x0 = problem.x0_trajectory()
-    # (a) Newton types; (b) controls, penalties and scaling (B1' only)
-    runs = [
-        ("(a) Full", dict(newton_type="Full")),
-        ("(a) ActiveSet", dict(newton_type="ActiveSet")),
-        ("(a) Globalized", dict(newton_type="Globalized", iteration_limit=50)),
-        ("(b) ParetoDecrease", dict(penalty_update="ParetoDecrease")),
-        ("(b) LagrangianFilter", dict(penalty_update="LagrangianFilter")),
-        ("(b) ResiduumRatio", dict(step_control_type="ResiduumRatio")),
-        ("(b) Exact", dict(step_control_type="Exact")),
-        ("(b) GradJac", dict(scaling_type="GradJac", scaling_primal=x0)),
-    ]
-    for label, kwargs in runs:
-        single(f"{label} N={OPTIONS_N}", problem, dict(pallas, **kwargs), x0, {"rl"})
-
-    # (c) Full Newton at N=256 (KKT 1284, B3' only)
-    problem = PendulumControl(N=OPTIONS_LL_N)
-    single(f"(c) Full N={OPTIONS_LL_N}", problem, dict(pallas, newton_type="Full"), problem.x0_trajectory(), {"ll"})
-
-    # (d) the fleet in lockstep (B2' only): ActiveSet Newton with the
-    # LagrangianFilter; the Exact control and Globalized Newton, whose lane
-    # forms run their inner loops to the limit with no host read
-    problem = PendulumControl(N=FLEET_N)
-    rng = np.random.default_rng(0)
-    x0 = problem.x0_trajectory()[None, :] + 0.02 * rng.standard_normal((FLEET_B, problem.num_vars))
-    fleets = [
-        ("ActiveSet+LagrangianFilter", dict(newton_type="ActiveSet", penalty_update="LagrangianFilter")),
-        ("Exact", dict(step_control_type="Exact")),
-        ("Globalized", dict(newton_type="Globalized", iteration_limit=OPTIONS_GLOBALIZED_FLEET_IT)),
-    ]
-    for name, kwargs in fleets:
-        label = f"options (d) fleet {name}"
-        params = Params(**dict(pallas, **kwargs))
-        cpu, _, cpu_wall = _solve_once(problem, params, "cpu", x0[:CPU_LANES], batched=True)
-        res, used, wall = _solve_once(problem, params, "cuda", x0, batched=True)
-        _expect_launches(label, used, {"rl_batched"})
-        dx = _check_lanes(label, res, cpu, slice(0, CPU_LANES))
-        if not torch.isfinite(res.x).all() or tuple(res.x.shape) != (FLEET_B, problem.num_vars):
-            fail(f"{label}: solutions not finite or of the wrong shape")
-        optimal = int((res.status == int(SolverStatus.Optimal)).sum())
-        iters = int(res.iterations.max())
-        print(
-            f"{label} N={FLEET_N} B={FLEET_B}: {optimal}/{FLEET_B} Optimal, "
-            f"lockstep iterations {iters}, lanes 0-{CPU_LANES - 1} {res.iterations[:CPU_LANES].tolist()}/"
-            f"{res.accepted_steps[:CPU_LANES].tolist()} launches={used} launches/iter={used['rl_batched'] / iters:.2f} "
-            f"|x-x_cpu|={dx:.3e} wall={wall:.3f} s ms/iter={1e3 * wall / iters:.2f} solves/s={FLEET_B / wall:.1f} "
-            f"cpu_wall={cpu_wall:.3f} s [{card}]",
-            flush=True,
-        )
-        for k in totals:
-            totals[k] += used[k]
-
-    # (e) the boxed QP (n_pad 1024, m = 0, B1' only); the last KKT matrix
-    # the card run hands B1' (positive definite, unit rows for the active
-    # variables) is then held against the plain version
+    single = {
+        "(a) Full": dict(newton_type="Full"),
+        "(a) ActiveSet": dict(newton_type="ActiveSet"),
+        "(a) Globalized": dict(newton_type="Globalized", iteration_limit=50),
+        "(b) ParetoDecrease": dict(penalty_update="ParetoDecrease"),
+        "(b) LagrangianFilter": dict(penalty_update="LagrangianFilter"),
+        "(b) ResiduumRatio": dict(step_control_type="ResiduumRatio"),
+        "(b) Exact": dict(step_control_type="Exact"),
+    }
+    if name in single or name == "(b) GradJac":
+        problem = PendulumControl(N=OPTIONS_N)
+        x0 = problem.x0_trajectory()
+        kwargs = single.get(name) or dict(scaling_type="GradJac", scaling_primal=x0)
+        return problem, Params(**dict(pallas, **kwargs)), x0, False
+    if name == "(c) Full":
+        problem = PendulumControl(N=OPTIONS_LL_N)
+        return problem, Params(**dict(pallas, newton_type="Full")), problem.x0_trajectory(), False
+    if name.startswith("(d)"):
+        # the fleet in lockstep: ActiveSet Newton with the LagrangianFilter;
+        # the Exact control and Globalized Newton, whose lane forms run their
+        # inner loops to the limit with no host read
+        fleets = {
+            "(d) ActiveSet+LagrangianFilter": dict(newton_type="ActiveSet", penalty_update="LagrangianFilter"),
+            "(d) Exact": dict(step_control_type="Exact"),
+            "(d) Globalized": dict(newton_type="Globalized", iteration_limit=OPTIONS_GLOBALIZED_FLEET_IT),
+        }
+        problem = PendulumControl(N=FLEET_N)
+        rng = np.random.default_rng(0)
+        x0 = problem.x0_trajectory()[None, :] + 0.02 * rng.standard_normal((FLEET_B, problem.num_vars))
+        return problem, Params(**dict(pallas, **fleets[name])), x0, True
+    assert name == "(e) QP"
     problem, x0 = boxed_qp(OPTIONS_QP_N)
-    qp = dict(linear_solver_type=LinearSolverType.PallasLDLT, lamb_init=1e-12, iteration_limit=1000, newton_type="ActiveSet")
-    kernel, kkt = lk.ldlt_factor_rl, []
+    params = Params(linear_solver_type=LinearSolverType.PallasLDLT, lamb_init=1e-12, iteration_limit=1000,
+                    newton_type="ActiveSet")
+    return problem, params, x0, False
 
-    def recording(a):
-        # the tier looks the wrapper up when a solver is built; the launch
-        # is the path's own and counted by the wrapper
-        if a.is_cuda:
-            kkt[:] = [a.clone()]
-        return kernel(a)
 
-    lk.ldlt_factor_rl = recording
+def options_phase(card, workers=3):
+    """Phase 8: the options of the discrete loop on the card, each run held
+    against the port's CPU run, which worker processes compute while the
+    card runs (status and counts equal, x to X_TOL when Optimal) with only
+    the kernel named launched: (a) Newton types and (b) controls, penalties
+    and GradJac scaling on the pendulum at N = 128 (B1'), (c) Full Newton at
+    N = 256 (B3'), (d) the N = 64 fleet of 128 lanes under ActiveSet Newton
+    and the LagrangianFilter, the Exact control and Globalized Newton (B2'),
+    (e) the boxed QP at n = 1000 under ActiveSet Newton (B1').  Returns the
+    launches of the card runs."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import SolverStatus
+    from pygradflow_torch.linalg import ldlt_kernels as lk
+
+    totals = dict.fromkeys(("rl", "ll", "rl_batched"), 0)
+    only = {"(c) Full": {"ll"}, "(e) QP": {"rl"}}
+    pool = multiprocessing.get_context("spawn").Pool(workers)
+    pending = {name: pool.apply_async(_cpu_reference, ("options", name)) for name in OPTIONS_RUNS[::-1]}
+
+    def run(name):
+        """A card run against the port's CPU run."""
+        problem, params, x0, batched = _options_config(name)
+        res, used, wall = _solve_once(problem, params, "cuda", x0, batched=batched)
+        ref = pending[name].get(timeout=900)
+        if batched:
+            label = f"options {name} fleet"
+            _expect_launches(label, used, {"rl_batched"})
+            dx = _check_lanes(label, res, _as_result(ref, True), slice(0, CPU_LANES))
+            if not torch.isfinite(res.x).all() or tuple(res.x.shape) != (FLEET_B, problem.num_vars):
+                fail(f"{label}: solutions not finite or of the wrong shape")
+            optimal = int((res.status == int(SolverStatus.Optimal)).sum())
+            iters = int(res.iterations.max())
+            print(
+                f"{label} N={FLEET_N} B={FLEET_B}: {optimal}/{FLEET_B} Optimal, "
+                f"lockstep iterations {iters}, lanes 0-{CPU_LANES - 1} {res.iterations[:CPU_LANES].tolist()}/"
+                f"{res.accepted_steps[:CPU_LANES].tolist()} launches={used} launches/iter="
+                f"{used['rl_batched'] / iters:.2f} |x-x_cpu|={dx:.3e} wall={wall:.3f} s "
+                f"ms/iter={1e3 * wall / iters:.2f} solves/s={FLEET_B / wall:.1f} cpu_wall={ref['wall']:.3f} s [{card}]",
+                flush=True,
+            )
+        else:
+            label = f"{name} N={problem.num_vars}" if name == "(e) QP" else name
+            _expect_launches(label, used, only.get(name, {"rl"}))
+            dx = _hold(label, res, _as_result(ref, False), "cpu", require_optimal=False)
+            print(
+                f"options {label}: {res.status.name} {res.iterations}/{res.num_accepted_steps} launches={used} "
+                f"launches/iter={sum(used.values()) / res.iterations:.2f} |x-x_cpu|={dx:.3e} wall={wall:.3f} s "
+                f"ms/iter={1e3 * wall / res.iterations:.2f} cpu_wall={ref['wall']:.3f} s [{card}]",
+                flush=True,
+            )
+        for k in totals:
+            totals[k] += used[k]
+
     try:
-        single(f"(e) QuadraticProblem ActiveSet n={OPTIONS_QP_N}", problem, qp, x0, {"rl"})
+        for name in OPTIONS_RUNS[:-1]:
+            run(name)
+        # (e) the boxed QP (n_pad 1024, m = 0, B1' only); the last KKT
+        # matrix the card run hands B1' (positive definite, unit rows for
+        # the active variables) is then held against the plain version
+        kernel, kkt = lk.ldlt_factor_rl, []
+
+        def recording(a):
+            # the tier looks the wrapper up when a solver is built; the
+            # launch is the path's own and counted by the wrapper
+            if a.is_cuda:
+                kkt[:] = [a.clone()]
+            return kernel(a)
+
+        lk.ldlt_factor_rl = recording
+        try:
+            run("(e) QP")
+        finally:
+            lk.ldlt_factor_rl = kernel
     finally:
-        lk.ldlt_factor_rl = kernel
+        pool.terminate()
+        pool.join()
     a64 = kkt[0].to(torch.float64)
     unit = int((torch.diagonal(a64) == 1.0).sum())
     qp_case = _factor_check(
@@ -1047,9 +1103,10 @@ def options_phase(card):
     return totals, dict(case=f"QP KKT, last of phase 8 (e), {unit} unit rows", shape=list(a64.shape), **qp_case)
 
 
-# GMRES at N = 64 and the boxed QP at n = 250, not N = 128 and n = 1000:
-# PERF.md section 4 gives the cuts
-LAST_N, LAST_LL_N, GMRES_N, LAST_QP_N = 128, 256, 64, 250
+# GMRES at N = 32 and the boxed QP at n = 150, not N = 128 and n = 1000:
+# PERF.md section 4 gives the cuts (the second, from N = 64 and n = 250, to
+# keep the script within its time limit with phase 12)
+LAST_N, LAST_LL_N, GMRES_N, LAST_QP_N = 128, 256, 32, 150
 RCOND_RTOL = 1e-8
 
 
@@ -1099,9 +1156,10 @@ LAST_RUNS = [
 """The card's order; the CPU references start longest first, GMRES's."""
 
 
-def _last_reference(name):
-    """The port's CPU run of the phase 9 run ``name`` (in a worker process),
-    as plain data: the first CPU_LANES lanes of a batch."""
+def _cpu_reference(phase, name):
+    """The port's CPU run of the run ``name`` of phase 8 ("options") or 9
+    ("last") in a worker process, as plain data: the first CPU_LANES lanes
+    of a batch."""
     sys.path.insert(0, ROOT)
     import torch
 
@@ -1109,7 +1167,7 @@ def _last_reference(name):
     from pygradflow_torch.parallel import BatchedSolver
 
     torch.set_num_threads(1)
-    problem, params, x0, batched = _last_config(name)
+    problem, params, x0, batched = {"options": _options_config, "last": _last_config}[phase](name)
     t0 = time.perf_counter()
     if batched:
         res = BatchedSolver(problem, params, device="cpu").solve(x0[:CPU_LANES])
@@ -1173,7 +1231,7 @@ def last_options_phase(card, workers=4):
         "(d) Optimizing": "headline", "(d) BoxReduced": "headline", "(e) fleet rcond": ("fleet", FLEET_N),
     }
     with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        pending = {name: pool.apply_async(_last_reference, (name,)) for name in LAST_RUNS[::-1]}
+        pending = {name: pool.apply_async(_cpu_reference, ("last", name)) for name in LAST_RUNS[::-1]}
         for name in LAST_RUNS:
             problem, params, x0, batched = _last_config(name)
             HOST_READS.clear()
@@ -1491,6 +1549,7 @@ def continuous_phase(card):
                 flush=True,
             )
             if B == INTEG_B:
+                REFERENCES["integ"] = res
                 _graph_unit_ms(card, solver, x0s, y0s)
         single(INTEG_LAST)
     for label, ours, theirs in PARTED:
@@ -1918,6 +1977,438 @@ def precision_phase(card):
     return totals
 
 
+# phase 12: the multi-device frontends and the runners.  A device may repeat
+# in a mesh, so the one card stands for a mesh of several; the results of
+# phases 5, 6 and 10 are kept (REFERENCES) so that phase 12 holds the
+# sharded runs against them, and it makes them itself when it runs alone.
+REFERENCES = {}
+BACKGROUND = []  # processes started in the background, stopped at exit
+LONG_FIRST = "hs long first"
+PHASE12_BUDGET_S = 240.0
+SHARD_MESH = 4
+SCHUR_NB, SCHUR_B, SCHUR_M = 512, 8, 1024
+SCHUR_RTOL, SCHUR_ATOL = 1e-9, 1e-10  # tests/test_schur.py:57-95
+# rows that may part in their counts, card against CPU: runs of at least
+# 1,000 iterations, and the specs whose counts rounding parts between the
+# packages (ROADMAP Queue C, "The HS sweep")
+HS_PARTABLE = 1000
+HS_PARTED = {"hs13", "hs18", "hs44", "hs62", "hs104", "hs106", "hs118"}
+OBJ_RTOL = 1e-6
+MPS_SAMPLE = """\
+NAME          SAMPLE
+ROWS
+ N  COST
+ L  LIM1
+ G  LIM2
+ E  EQ1
+COLUMNS
+    X1        COST      1.0        LIM1      1.0
+    X1        LIM2      1.0
+    X2        COST      2.0        LIM1      1.0
+    X2        EQ1       1.0
+    X3        COST      -1.0       EQ1       1.0
+RHS
+    RHS       LIM1      4.0        LIM2      1.0
+    RHS       EQ1       7.0
+BOUNDS
+ UP BND       X1        4.0
+ LO BND       X2        -1.0
+ENDATA
+"""
+
+
+def _headline_starts():
+    import numpy as np
+
+    return np.random.default_rng(0).uniform(-1.5, 1.5, size=(HEADLINE_B, 2))
+
+
+def _fleet_config():
+    import numpy as np
+
+    from pygradflow_torch import LinearSolverType, Params
+    from pygradflow_torch.runners.control import PendulumControl
+
+    params = Params(linear_solver_type=LinearSolverType.PallasLDLT, iteration_limit=3000, validate_input=False)
+    problem = PendulumControl(N=FLEET_N)
+    rng = np.random.default_rng(0)
+    x0 = problem.x0_trajectory()[None, :] + 0.02 * rng.standard_normal((FLEET_B, problem.num_vars))
+    return problem, params, x0
+
+
+def _same_lanes(label, res, ref, fields=("status", "iterations", "accepted_steps", "x"), bits=True):
+    """Every lane of ``res`` against ``ref``'s: bit for bit, or with
+    ``bits`` false equal counts (all fields but the last) and x within
+    X_TOL; returns whether x is bitwise equal and max |dx|."""
+    import torch
+
+    for field in fields[:-1] if not bits else fields:
+        a, b = getattr(res, field), getattr(ref, field)
+        if a.shape != b.shape or not torch.equal(a, b.to(a.device)):
+            fail(f"{label}: {field} differs from the reference lanes")
+    x, x_ref = getattr(res, fields[-1]), getattr(ref, fields[-1]).to(res.x.device)
+    dx = float((x - x_ref).abs().max())
+    if not dx <= X_TOL:
+        fail(f"{label}: x differs from the reference lanes by {dx:.3e}")
+    return torch.equal(x, x_ref), dx
+
+
+def _distributed_rank(rank, world, port, out, lanes):
+    """One rank of phase 12 (b): init_distributed on localhost, then
+    DistributedSolver on the headline lanes, its full result saved."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import Params
+    from pygradflow_torch.parallel import DistributedSolver, init_distributed
+    from tests.torch_parity import Rosenbrock
+
+    info = init_distributed(coordinator_address=f"localhost:{port}", num_processes=world, process_id=rank)
+    backend = torch.distributed.get_backend()
+    res = DistributedSolver(Rosenbrock(), Params(validate_input=False, jit_chunk=128)).solve(
+        torch.tensor(_headline_starts()[:lanes])
+    )
+    torch.cuda.synchronize()
+    np.savez(out, backend=backend, global_devices=info.global_devices,
+             **{f: getattr(res, f).cpu().numpy() for f in ("status", "iterations", "accepted_steps", "x")})
+    torch.distributed.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(worlds, lanes, tmp, timeout=300.0):
+    """Phase 12 (b): a process group of each size in ``worlds``, all
+    spawned on the card at once, each on a port of its own; each group's
+    per-rank results."""
+    import multiprocessing
+
+    import numpy as np
+
+    ctx = multiprocessing.get_context("spawn")
+    outs, procs = {}, []
+    for world in worlds:
+        port = _free_port()
+        outs[world] = [os.path.join(tmp, f"rank{world}_{r}.npz") for r in range(world)]
+        procs += [ctx.Process(target=_distributed_rank, args=(r, world, port, outs[world][r], lanes))
+                  for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout)
+            if p.exitcode != 0:
+                fail(f"distributed: a rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return {world: [dict(np.load(o)) for o in paths] for world, paths in outs.items()}
+
+
+def _runner(module, args, out, device):
+    """A runner sweep in a process of its own (a session of its own, so
+    that its ``--parallel`` children stop with it); each child on one CPU
+    thread, so that the children of the two sweeps share the host's cores.
+    ``module`` names a runner of ``pygradflow_torch.runners``, or is
+    ``LONG_FIRST``, the HS runner with hs104 and hs106 dispatched first
+    (``tools/hs_long_first.py``)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    if module == LONG_FIRST:
+        start = ["-c", "from tools.hs_long_first import LongFirstHSRunner; LongFirstHSRunner().main()"]
+    else:
+        start = ["-m", f"pygradflow_torch.runners.{module}"]
+    cmd = [sys.executable, *start, *args, "--device", device, "--output", out]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                            start_new_session=True)
+    BACKGROUND.append(proc)
+    return proc
+
+
+def start_hs_sweeps():
+    """Phase 12 (e)'s two sweeps of the HS suite, started in the background
+    once the kernels have been timed (the 80 children of ``--parallel 4``
+    each need seconds to reach the card, and hs104 and hs106 run 10,000
+    iterations each): ``--parallel 4`` on the card with those two
+    dispatched first, and the port's CPU run in sequence, in one process,
+    so that it takes one core of the host from the card's children; returns
+    their processes, output directories and a record of their walls."""
+    import tempfile
+    import threading
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hs_")
+    sweeps = {"tmp": tmp, "walls": {}}
+    for device, module, args in (("cuda", LONG_FIRST, ["--parallel", "4"]), ("cpu", "hs_runner", [])):
+        out = os.path.join(tmp, device)
+        t0 = time.perf_counter()
+        proc = _runner(module, args, out, device)
+
+        def wait(proc=proc, device=device, t0=t0):
+            proc.wait()
+            sweeps["walls"][device] = time.perf_counter() - t0
+
+        threading.Thread(target=wait, daemon=True).start()
+        sweeps[device] = (proc, out)
+    print("multi (e) HS sweeps started in the background, on the card and on the CPU", flush=True)
+    return sweeps
+
+
+def stop_background():
+    """Stop every process group that the script started in the background."""
+    import signal
+
+    while BACKGROUND:
+        proc = BACKGROUND.pop()
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def _csv_rows(out):
+    import csv
+
+    with open(os.path.join(out, "output.csv")) as f:
+        return {row["instance"]: row for row in csv.DictReader(f)}
+
+
+def _hold_rows(label, ours, theirs, partable=None):
+    """Runner rows on the card against the CPU run: equal statuses, and
+    equal iterations and accepted steps with ``final_scaled_obj`` within
+    OBJ_RTOL; a row that ``partable(name, row)`` admits may part in its
+    counts, and keeps its status and objective.  Returns the parted rows."""
+    if set(ours) != set(theirs):
+        fail(f"{label}: instances {sorted(set(ours) ^ set(theirs))} in one run only")
+    parted = []
+    for name, row in ours.items():
+        ref = theirs[name]
+        obj, obj_ref = float(row["final_scaled_obj"]), float(ref["final_scaled_obj"])
+        close = abs(obj - obj_ref) <= OBJ_RTOL * max(1.0, abs(obj_ref))
+        counts = (row["iterations"], row["num_accepted_steps"])
+        counts_ref = (ref["iterations"], ref["num_accepted_steps"])
+        if counts != counts_ref and row["status"] != "optimal" and partable and partable(name, ref):
+            # a parted run that did not converge ends at another iterate:
+            # its objective is printed, not held
+            close = True
+        if row["status"] != ref["status"] or not close:
+            fail(f"{label} {name}: {row['status']} {counts} obj {obj!r}, cpu {ref['status']} {counts_ref} {obj_ref!r}")
+        if counts != counts_ref:
+            if partable and partable(name, ref):
+                parted.append((name, counts, counts_ref, abs(obj - obj_ref)))
+            else:
+                fail(f"{label} {name}: counts {counts}, cpu {counts_ref}")
+    return parted
+
+
+def multi_device_phase(card, sweeps=None):
+    """Phase 12: ShardedSolver, DistributedSolver, distributed_schur_solve and
+    ShardedIntegrationSolver on the card, and the HS, QP and MPS runners
+    against the port's CPU runs; returns the launches of (a2).  ``sweeps``
+    are the HS sweeps that ``start_hs_sweeps`` started (None: started
+    here)."""
+    import collections
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import Params, SolverStatus
+    from pygradflow_torch.integration import BatchedIntegrationSolver, ShardedIntegrationSolver
+    from pygradflow_torch.linalg import ldlt_kernels as lk
+    from pygradflow_torch.native import available, parse_mps_native
+    from pygradflow_torch.parallel import BatchedSolver, ShardedSolver
+    from pygradflow_torch.parallel.schur import distributed_schur_solve
+    from pygradflow_torch.runners.mps import parse_mps_py
+    from pygradflow_torch.runners.mps_runner import MPSRunner
+    from pygradflow_torch.runners.qp_runner import QPRunner
+    from tests.torch_parity import Rosenbrock
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p12_")
+    mps_dir = os.path.join(tmp, "mps")
+    os.makedirs(mps_dir)
+    with open(os.path.join(mps_dir, "sample.mps"), "w") as f:
+        f.write(MPS_SAMPLE)
+    if sweeps is None:
+        sweeps = start_hs_sweeps()
+    # the CPU runs of (f) start with the phase
+    cpu_out = {k: os.path.join(tmp, f"cpu_{k}") for k in ("qp", "mps")}
+    cpu_runs = {
+        "qp": _runner("qp_runner", [], cpu_out["qp"], "cpu"),
+        "mps": _runner("mps_runner", ["--dir", mps_dir], cpu_out["mps"], "cpu"),
+    }
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    try:
+        # (a) the headline sharded over one and over four shards of the card
+        params = Params(validate_input=False, jit_chunk=128)
+        x0 = torch.tensor(_headline_starts(), device="cuda")
+        if "headline" not in REFERENCES:
+            for _ in ("warm-up", "timed"):
+                REFERENCES["headline"], REFERENCES["headline wall"] = timed(
+                    lambda: BatchedSolver(Rosenbrock(), params, device="cuda").solve(x0))
+            REFERENCES["headline plain"] = BatchedSolver(Rosenbrock(), params, device="cuda", compact=False).solve(x0)
+        sharded = {}
+        for shards in (1, SHARD_MESH):
+            solver = ShardedSolver(Rosenbrock(), params, mesh=["cuda:0"] * shards)
+            solver.solve(x0)  # warm-up, as the BatchedSolver run it is timed beside
+            res, wall = timed(lambda: solver.solve(x0))
+            _same_lanes(f"sharded headline ({shards} shard(s)) against BatchedSolver without compaction",
+                        res, REFERENCES["headline plain"])
+            _same_lanes(f"sharded headline ({shards} shard(s)) against BatchedSolver", res, REFERENCES["headline"])
+            optimal = int((res.status == int(SolverStatus.Optimal)).sum())
+            if optimal != HEADLINE_B:
+                fail(f"sharded headline: {optimal}/{HEADLINE_B} Optimal")
+            sharded[shards] = res
+            print(f"multi (a) ShardedSolver headline B={HEADLINE_B} mesh cuda:0 x{shards}: {optimal}/{HEADLINE_B} "
+                  f"Optimal, lanes bit for bit BatchedSolver's (with and without compaction), wall={wall:.3f} s "
+                  f"solves/s={HEADLINE_B / wall:.1f} (BatchedSolver in this call "
+                  f"{HEADLINE_B / REFERENCES['headline wall']:.1f}) [{card}]", flush=True)
+
+        # (a2) the fleet, two shards of 64 lanes through B2'
+        problem, fparams, fx0 = _fleet_config()
+        fx0 = torch.tensor(fx0, device="cuda")
+        if "fleet" not in REFERENCES:
+            REFERENCES["fleet"] = BatchedSolver(problem, fparams, device="cuda").solve(fx0)
+        solver = ShardedSolver(problem, fparams, mesh=["cuda:0"] * 2)
+        for key in lk.LAUNCHES:
+            lk.LAUNCHES[key] = 0
+        res, wall = timed(lambda: solver.solve(fx0))
+        used = dict(lk.LAUNCHES)
+        # batched cuBLAS products pick their algorithms by batch count, so
+        # the lanes' last bits may follow the width: counts must be equal,
+        # x within X_TOL, and the bits are reported
+        bitwise, dx = _same_lanes("sharded fleet against phase 5's BatchedSolver", res, REFERENCES["fleet"], bits=False)
+        if used["rl_batched"] == 0 or used["rl"] or used["ll"]:
+            fail(f"sharded fleet: launches {used}, expected only 'rl_batched'")
+        iters = int(res.iterations.max())
+        print(f"multi (a2) ShardedSolver fleet N={FLEET_N} B={FLEET_B} mesh cuda:0 x2: status and counts of phase 5's "
+              f"lanes, x bitwise equal: {bitwise}, max |dx| {dx:.3e}, lockstep iterations {iters} (phase 5 "
+              f"{int(REFERENCES['fleet'].iterations.max())}), launches {used} wall={wall:.3f} s [{card}]", flush=True)
+
+        # (b) DistributedSolver: two ranks sharing the card over gloo, and
+        # beside them one rank under NCCL
+        groups, wall = timed(lambda: _run_ranks((2, 1), HEADLINE_B, tmp))
+        for world, ranks in groups.items():
+            for r, out in enumerate(ranks):
+                expect = ("gloo", 2) if world == 2 else ("nccl", 1)
+                if (str(out["backend"]), int(out["global_devices"])) != expect:
+                    fail(f"distributed world {world} rank {r}: backend {out['backend']}, "
+                         f"{out['global_devices']} devices, expected {expect}")
+                for field in ("status", "iterations", "accepted_steps", "x"):
+                    if not np.array_equal(out[field], getattr(sharded[1], field).cpu().numpy()):
+                        fail(f"distributed world {world} rank {r}: {field} differs from (a)")
+        print(f"multi (b) DistributedSolver: 2 ranks sharing the card over gloo and 1 rank under nccl, every rank "
+              f"the full {HEADLINE_B} lanes of (a) bit for bit; wall with the ranks' start {wall:.3f} s [{card}]",
+              flush=True)
+
+        # (c) the distributed Schur solve against a dense f64 solve
+        rng = np.random.default_rng(SEED)
+        n = SCHUR_NB * SCHUR_B
+        blocks = rng.standard_normal((SCHUR_NB, SCHUR_B, SCHUR_B))
+        h = torch.tensor(blocks @ blocks.transpose(0, 2, 1) + SCHUR_B * np.eye(SCHUR_B), device="cuda")
+        J = torch.tensor(rng.standard_normal((SCHUR_M, n)), device="cuda")
+        m22 = -0.7 * torch.eye(SCHUR_M, dtype=torch.float64, device="cuda")
+        rx = torch.tensor(rng.standard_normal(n), device="cuda")
+        ry = torch.tensor(rng.standard_normal(SCHUR_M), device="cuda")
+        (sx, sy), wall = timed(lambda: distributed_schur_solve(h, J, m22, rx, ry, mesh=["cuda:0"] * SHARD_MESH))
+        K = torch.zeros((n + SCHUR_M, n + SCHUR_M), dtype=torch.float64, device="cuda")
+        K[:n, :n] = torch.block_diag(*h)
+        K[:n, n:], K[n:, :n], K[n:, n:] = J.T, J, m22
+        dense, dense_wall = timed(lambda: torch.linalg.solve(K, torch.cat([rx, ry])))
+        for label, ours, ref in (("sx", sx, dense[:n]), ("sy", sy, dense[n:])):
+            err = (ours - ref).abs()
+            if not bool((err <= SCHUR_ATOL + SCHUR_RTOL * ref.abs()).all()):
+                fail(f"distributed Schur {label}: max |err| {float(err.max()):.3e}")
+        rel = float(((torch.cat([sx, sy]) - dense).abs() / dense.abs().clamp_min(1e-300)).max())
+        print(f"multi (c) distributed_schur_solve nb={SCHUR_NB} b={SCHUR_B} m={SCHUR_M} mesh cuda:0 x{SHARD_MESH}: "
+              f"within rtol {SCHUR_RTOL} atol {SCHUR_ATOL} of the dense f64 solve (max rel {rel:.3e}), "
+              f"wall {wall:.3f} s, dense {dense_wall:.3f} s [{card}]", flush=True)
+
+        # (d) the continuous batch of phase 10 over four shards
+        problem, iparams, x0s, y0s = _integ_batch(INTEG_B)
+        x0s, y0s = torch.tensor(x0s, device="cuda"), torch.tensor(y0s, device="cuda")
+        if "integ" not in REFERENCES:
+            REFERENCES["integ"] = BatchedIntegrationSolver(problem, iparams, device="cuda").solve(x0s, y0s)
+        solver = ShardedIntegrationSolver(problem, iparams, mesh=["cuda:0"] * SHARD_MESH)
+        res, wall = timed(lambda: solver.solve(x0s, y0s))
+        _same_lanes("sharded continuous batch against phase 10's", res, REFERENCES["integ"],
+                    fields=("status", "iterations", "num_integration_steps", "num_newton_steps", "x", "y"))
+        print(f"multi (d) ShardedIntegrationSolver B={INTEG_B} mesh cuda:0 x{SHARD_MESH}: lanes bit for bit phase "
+              f"10's, units max {int(res.units.max())}, wall={wall:.3f} s solves/s={INTEG_B / wall:.1f} [{card}]",
+              flush=True)
+
+        # (e) the HS suite through the runner, four children on the card,
+        # against the CPU run; both started in the background
+        for device in ("cuda", "cpu"):
+            proc, _ = sweeps[device]
+            if proc.wait(timeout=1800) != 0:
+                fail(f"multi (e) hs: the {device} sweep exited with {proc.returncode}")
+        card_rows = _csv_rows(sweeps["cuda"][1])
+        if len(card_rows) != 80:
+            fail(f"multi (e) hs: {len(card_rows)} rows, expected 80")
+        parted = _hold_rows("multi (e) hs", card_rows, _csv_rows(sweeps["cpu"][1]),
+                            partable=lambda name, ref: name in HS_PARTED or int(ref["iterations"]) >= HS_PARTABLE)
+        statuses = collections.Counter(row["status"] for row in card_rows.values())
+        iterations = sum(int(row["iterations"]) for row in card_rows.values())
+        longest = sorted(card_rows.values(), key=lambda row: -float(row["total_time"]))[:3]
+        for name, ours, theirs, dobj in parted:
+            print(f"multi (e) parted: {name} card {ours} cpu {theirs} |d obj| {dobj:.3e}", flush=True)
+        print(f"multi (e) HSRunner --parallel 4 on the card: {len(card_rows)} rows {dict(statuses)}, "
+              f"{iterations} iterations, every row held to the CPU run ({len(parted)} parted), wall "
+              f"{sweeps['walls']['cuda']:.1f} s (the CPU run {sweeps['walls']['cpu']:.1f} s), longest "
+              + ", ".join(f"{r['instance']} {float(r['total_time']):.1f} s "
+                          f"({1e3 * float(r['total_time']) / max(1, int(r['iterations'])):.1f} ms/iteration)"
+                          for r in longest)
+              + f" [{card}]", flush=True)
+
+        # (f) the QP runner in sequence on the card, then the MPS runner on
+        # the inline file through the native reader
+        if not available():
+            fail("the native MPS reader did not build")
+        path = os.path.join(mps_dir, "sample.mps")
+        native, py = parse_mps_native(path), parse_mps_py(path)
+        for key in ("c", "A", "cons_lb", "cons_ub", "var_lb", "var_ub"):
+            if not np.array_equal(getattr(native, key), getattr(py, key)):
+                fail(f"native MPS reader: {key} differs from parse_mps_py")
+        for name, runner, args in (("qp", QPRunner(), []), ("mps", MPSRunner(), ["--dir", mps_dir])):
+            out = os.path.join(tmp, f"card_{name}")
+            t0 = time.perf_counter()
+            runner.main(["--device", "cuda", "--output", out, *args])
+            wall = time.perf_counter() - t0
+            cpu_runs[name].wait(timeout=600)
+            rows = _csv_rows(out)
+            _hold_rows(f"multi (f) {name}", rows, _csv_rows(cpu_out[name]))
+            summary = ", ".join(f"{k} {r['status']} {r['iterations']}/{r['num_accepted_steps']}" for k, r in rows.items())
+            print(f"multi (f) {type(runner).__name__} on the card: {summary}, rows equal to the CPU run's, "
+                  f"wall {wall:.1f} s [{card}]", flush=True)
+    finally:
+        stop_background()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(sweeps["tmp"], ignore_errors=True)
+
+    elapsed = time.perf_counter() - t_phase
+    within = "within" if elapsed <= PHASE12_BUDGET_S else "over"
+    print(f"multi phase: {elapsed:.1f} s, {within} its budget of {PHASE12_BUDGET_S:.0f} s [{card}]", flush=True)
+    return used
+
+
 def main():
     try:
         import torch
@@ -1945,25 +2436,48 @@ def main():
         precision_phase(card)
         print(json.dumps({"ok": True, "device": device}))
         return 0
-    path = path_matrices("cuda")
-    records = kernel_phase(card, path)
-    two_level_phase(card, path)
-    records["rl_batched"] = batched_kernel_phase(card, path)
-    split_phase(card)
-    launches = slice_phase(card)
-    launches["rl_batched"] = fleet_phase(card)["rl_batched"]
-    headline_phase(card)
-    for key, count in control_phase(card).items():
-        launches[key] += count
-    options_launches, qp_case = options_phase(card)
-    for key, count in options_launches.items():
-        launches[key] += count
-    records["rl"]["cases"].append(qp_case)
-    for key, count in last_options_phase(card).items():
-        launches[key] += count
-    continuous_phase(card)
-    for key, count in precision_phase(card).items():
-        launches[key] += count
+    if sys.argv[1:] == ["--only", "12"]:  # the multi-device phase alone, after the build
+        try:
+            multi_device_phase(card)
+        finally:
+            stop_background()
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
+    t_run = time.perf_counter()
+    walls = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        print(f"phase {name}: {walls[name]:.1f} s (script at {time.perf_counter() - t_run:.1f} s)", flush=True)
+        return out
+
+    try:
+        path = path_matrices("cuda")
+        records = phase("3 kernels", kernel_phase, card, path)
+        two_level_phase(card, path)
+        records["rl_batched"] = phase("3 batched kernel", batched_kernel_phase, card, path)
+        phase("3 split", split_phase, card)
+        sweeps = start_hs_sweeps()  # phase 12 (e), beside phases 4-11
+        launches = phase("4 slice", slice_phase, card)
+        launches["rl_batched"] = phase("5 fleet", fleet_phase, card)["rl_batched"]
+        phase("6 headline", headline_phase, card)
+        for key, count in phase("7 control", control_phase, card).items():
+            launches[key] += count
+        options_launches, qp_case = phase("8 options", options_phase, card)
+        for key, count in options_launches.items():
+            launches[key] += count
+        records["rl"]["cases"].append(qp_case)
+        for key, count in phase("9 last options", last_options_phase, card).items():
+            launches[key] += count
+        phase("10 continuous", continuous_phase, card)
+        for key, count in phase("11 precision", precision_phase, card).items():
+            launches[key] += count
+        for key, count in phase("12 multi-device", multi_device_phase, card, sweeps).items():
+            launches[key] += count
+    finally:
+        stop_background()
 
     summary = []
     for key, (name, replaces) in KERNELS.items():

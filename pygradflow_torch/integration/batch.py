@@ -104,12 +104,78 @@ class BatchedIntegrationResult(NamedTuple):
 
 
 class ShardedIntegrationSolver:
-    """The continuous-engine sweep sharded over a device mesh."""
+    """The continuous-engine sweep sharded over ``mesh``, a sequence of
+    torch devices (default: every visible CUDA device), as
+    ``parallel.ShardedSolver`` shards the discrete one.
+
+    The batch is split into ``len(mesh)`` contiguous shards; each shard's
+    lanes run the flat engine's chunks (``FlatRunner.chunk``) on its device,
+    with no exchange between shards inside a chunk and no compaction, and
+    the host reads between chunks whether any lane of any shard still runs.
+    ``params.time_limit`` is checked there.  A lane's steps do not depend on
+    the width of its stack, so every lane equals the same lane of a
+    ``BatchedIntegrationSolver`` bit for bit."""
 
     def __init__(self, problem, params=None, mesh=None):
-        raise NotImplementedError(
-            "ShardedIntegrationSolver is not yet ported (ROADMAP A12, with parallel/shard.py)"
-        )
+        from ..parallel.shard import resolve_mesh
+
+        self.mesh = resolve_mesh(mesh)
+        self.num_devices = len(self.mesh)
+        self._solvers = {d: BatchedIntegrationSolver(problem, params, device=d) for d in dict.fromkeys(self.mesh)}
+        self.batched = self._solvers[self.mesh[0]]
+        self.params = self.batched.params
+
+    def solve(self, x0s, y0s=None) -> BatchedIntegrationResult:
+        from ..parallel.shard import concat_lanes, run_per_device
+
+        mesh, nd = self.mesh, self.num_devices
+        x0s = x0s if torch.is_tensor(x0s) else np.asarray(x0s)
+        B = x0s.shape[0]
+        if B % nd != 0:
+            raise ValueError(f"batch size {B} must be divisible by the mesh size {nd} (pad the batch)")
+        per = B // nd
+
+        def init(k, rows):
+            solver = self._solvers[mesh[k]]
+            dtype, device = self.params.dtype, solver.device
+            x0 = torch.as_tensor(x0s[rows], dtype=dtype, device=device)
+            if y0s is None:
+                y0 = torch.zeros((per, solver.inner.orig_problem.num_cons), dtype=dtype, device=device)
+            else:
+                y0 = torch.as_tensor(y0s[rows], dtype=dtype, device=device)
+            x, y = vmap(solver.inner.transform.transform_sol)(x0, y0)
+            return solver.runner.init(x, y)
+
+        states = [init(k, slice(k * per, (k + 1) * per)) for k in range(nd)]
+        timer = Timer(self.params.time_limit)
+        while True:
+            states = run_per_device(mesh, lambda k, s: self._solvers[mesh[k]].runner.chunk(s), states)
+            if not any(any_running(s["status"] == RUNNING, "flat") for s in states):
+                break
+            if timer.reached_time_limit():
+                states = [
+                    dict(s, status=torch.where(s["status"] == RUNNING, int(SolverStatus.TimeLimit), s["status"]))
+                    for s in states
+                ]
+                break
+
+        parts = []
+        for k, s in enumerate(states):
+            xr, yr, dr = self._solvers[mesh[k]]._post(s["z"])
+            parts.append(
+                BatchedIntegrationResult(
+                    x=xr,
+                    y=yr,
+                    d=dr,
+                    status=s["status"],
+                    iterations=s["iteration"],
+                    rho=s["rho"],
+                    num_integration_steps=s["steps"],
+                    num_newton_steps=s["newtons"],
+                    units=s["units"],
+                )
+            )
+        return concat_lanes(parts, mesh[0])
 
 
 class BatchedIntegrationSolver:

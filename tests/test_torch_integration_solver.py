@@ -14,10 +14,11 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 import pygradflow_tpu
 import pygradflow_tpu.integration
-from pygradflow_torch import DerivCheck, IntegrationMethod, Params, Precision
+from pygradflow_torch import DerivCheck, IntegrationMethod, Params, Precision, SolverStatus
 from pygradflow_torch.integration import IntegrationSolver, ShardedIntegrationSolver
 from tests import problems
 from tests.test_integration_solver import SimpleProblem as JaxSimpleProblem
@@ -217,6 +218,19 @@ def test_unported_options_raise(kwargs, item):
 
 
 def test_sharded_solver_names_its_item():
-    with pytest.raises(NotImplementedError, match="A12"):
-        ShardedIntegrationSolver(HS71Explicit(), Params())
+    """``ShardedIntegrationSolver`` raised naming ROADMAP A12 until it was
+    ported: it now runs Tame over a CPU mesh (two segments) with the
+    batched solver's lanes, and without a mesh it wants a card, as every
+    entry point does."""
+    from pygradflow_torch.integration import BatchedIntegrationSolver
+
+    x0s = tensor(np.zeros((2, 2)))
+    params = Params(**dict(BASE, iteration_limit=2))
+    ours = ShardedIntegrationSolver(TameExplicit(), params, mesh=["cpu"] * 2).solve(x0s)
+    ref = BatchedIntegrationSolver(TameExplicit(), params, device="cpu").solve(x0s)
+    assert [SolverStatus(int(s)).name for s in ours.status] == ["IterationLimit"] * 2
+    assert torch.equal(ours.num_integration_steps, ref.num_integration_steps) and torch.equal(ours.x, ref.x)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardedIntegrationSolver(HS71Explicit(), Params())
 
