@@ -154,6 +154,21 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    the native reader equal to the Python one, each row against the CPU
    run.  ``python3 chip_smoke.py --only 12`` runs the build and this phase
    alone.
+13. surface (run before phase 12, beside its HS sweeps): (a) the five
+   examples of ``docs/torch`` through their ``main(device="cuda")`` at the
+   JAX examples' sizes, each held to the port's CPU run of the same
+   example (worker processes started with the phase): equal status and
+   counts, x within 1e-6, their launches recorded; (b)
+   ``Solver.perform_iteration`` on Rosenbrock at ``Params()`` and on the
+   pendulum at N = 128 on PallasLDLT (B1' must launch), (x, y, d) within
+   1e-10 of the CPU; (c) the parity harness (``tools/torch_parity_check.py``)
+   on the card: the pendulum at N = 128 (B1') and N = 256 (B3') here, and
+   in a process of its own, started with phase 12's HS sweeps after phase
+   3, the HS specs and option cases whose JAX run took at most 200
+   iterations, every row against
+   ``tools/torch_parity_jax.json`` under the harness's limits and its
+   expected partings.  ``python3 chip_smoke.py --only 13`` runs the build
+   and this phase alone.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
@@ -2409,6 +2424,248 @@ def multi_device_phase(card, sweeps=None):
     return used
 
 
+# phase 13: the public surface, the examples and the parity harness.  The
+# examples run at the JAX examples' sizes; their CPU runs are made by
+# worker processes started with the phase.  The harness's card subset runs
+# in a process of its own, started with the HS sweeps: the HS specs and
+# option cases whose JAX run took at most PARITY_MAX_IT iterations (the
+# two Globalized option cases run 10,000 each and are held on the CPU
+# only); its two pendulum cases run in the phase, so that their launches
+# are counted.
+EXAMPLES = {
+    "solve_rosenbrock": {},
+    "solve_constrained": {},
+    "optimal_control": {"N": 64},
+    "batched_sweep": {"B": 64},
+    "continuous_flow": {"B": 8},
+}
+PARITY_MAX_IT = 200
+PARITY_PENDULUM = {"pendulum N=128": "rl", "pendulum N=256": "ll"}
+PERFORM_TOL = 1e-10
+
+
+def _example_records(name, device):
+    """Run the port's example ``name`` on ``device`` at its JAX size, its
+    printing captured; returns [(label, record)] with status, counts and x
+    as numpy, and the captured text."""
+    import contextlib
+    import importlib.util
+    import io
+    import logging
+
+    import numpy as np
+
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    buf = io.StringIO()
+    try:
+        spec = importlib.util.spec_from_file_location(f"example_{name}", os.path.join(ROOT, "docs", "torch", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        with contextlib.redirect_stdout(buf):
+            spec.loader.exec_module(mod)
+            out = mod.main(device=device, **EXAMPLES[name])
+    finally:
+        for h in list(root.handlers):
+            if h not in handlers:
+                root.removeHandler(h)
+        root.setLevel(level)
+
+    def single(r):
+        return dict(status=r.status.name, counts=(r.iterations, r.num_accepted_steps), x=r.x.cpu().numpy())
+
+    def flow(r):
+        return dict(status=r.status.name, counts=(r.iterations, r.num_integration_steps), x=r.x.cpu().numpy())
+
+    def lanes(r, steps):
+        return dict(status=r.status.tolist(), counts=(r.iterations.tolist(), getattr(r, steps).tolist()),
+                    x=r.x.cpu().numpy())
+
+    if name == "solve_rosenbrock":
+        recs = [("Rosenbrock", single(out))]
+    elif name == "solve_constrained":
+        recs = [("HS71 display + checkpoint", single(out[0])), ("HS71 IntegrationSolver", flow(out[1]))]
+    elif name == "optimal_control":
+        recs = [("pendulum N=64 staged PallasLDLT", single(out))]
+    elif name == "batched_sweep":
+        if out[1] is not None:
+            fail("batched_sweep: sharded on a machine with one card")
+        recs = [("64 Rosenbrock lanes", lanes(out[0], "accepted_steps"))]
+    else:
+        recs = [("HS71 host TR-BDF2", flow(out[0])), ("HS71 device SDIRK4", flow(out[1])),
+                ("8 HS71 lanes SDIRK4", lanes(out[2], "num_integration_steps"))]
+    for label, rec in recs:
+        if not np.isfinite(rec["x"]).all():
+            fail(f"{name} {label}: x not finite")
+    return recs, buf.getvalue()
+
+
+def _example_reference(name):
+    """The port's CPU run of the example ``name`` (in a worker process)."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    recs, _ = _example_records(name, "cpu")
+    return recs, time.perf_counter() - t0
+
+
+def _perform(problem, params, device, x0):
+    """``Solver.perform_iteration`` on ``device``, the counters set to 0
+    before it; returns (x, y, d) as numpy and the launches."""
+    import torch
+
+    from pygradflow_torch import Solver
+    from pygradflow_torch.linalg import ldlt_kernels as lk
+
+    for key in lk.LAUNCHES:
+        lk.LAUNCHES[key] = 0
+    x, y, d = Solver(problem, params, device=device).perform_iteration(torch.tensor(x0, device=device))
+    if str(x.device).split(":")[0] != device:
+        fail(f"perform_iteration returned a tensor on {x.device}, not {device}")
+    return tuple(t.cpu().numpy() for t in (x, y, d)), dict(lk.LAUNCHES)
+
+
+def start_parity_subset():
+    """Phase 13 (c)'s harness process, started in the background: the HS
+    and option cases of the card subset (the pendulum's run in the phase);
+    returns the process and the directory of its log."""
+    import tempfile
+
+    from tools import torch_parity_cases as pc
+
+    subset = [c.name for c in pc.cases() if c.kind in ("hs", "option")]
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_p13_")
+    cmd = [sys.executable, os.path.join(ROOT, "tools", "torch_parity_check.py"), "--side", "torch", "--device",
+           "cuda", "--max-iterations", str(PARITY_MAX_IT), "--cases", *subset]
+    with open(os.path.join(log_dir, "parity.log"), "w") as log:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+                                env=dict(os.environ, OMP_NUM_THREADS="1"))
+    BACKGROUND.append(proc)
+    return proc, log_dir
+
+
+def surface_phase(card, parity=None):
+    """Phase 13: (a) the five examples of docs/torch through their
+    ``main(device="cuda")`` at the JAX examples' sizes, each against the
+    port's CPU run (equal status and counts, x within X_TOL); (b)
+    ``Solver.perform_iteration`` on Rosenbrock and on the pendulum at N=128
+    on PallasLDLT (B1'), against the CPU to PERFORM_TOL; (c) the parity
+    harness's card subset against ``tools/torch_parity_jax.json``, in the
+    process ``parity`` that ``start_parity_subset`` started (None: started
+    here).  Returns the launches of (a)-(c)."""
+    import multiprocessing
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import Params
+    from pygradflow_torch.linalg import ldlt_kernels as lk
+    from pygradflow_torch.runners.control import PendulumControl
+    from tools import torch_parity_cases as pc
+    from tools.torch_parity_check import load_jax_rows
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(("rl", "ll", "rl_batched"), 0)
+
+    if parity is None:
+        parity = start_parity_subset()
+
+    with multiprocessing.get_context("spawn").Pool(3) as pool:
+        pending = {name: pool.apply_async(_example_reference, (name,))
+                   for name in ("continuous_flow", "solve_constrained", "optimal_control", "batched_sweep",
+                                "solve_rosenbrock")}
+
+        # (a) the examples on the card, in the JAX package's order
+        for name in EXAMPLES:
+            for key in lk.LAUNCHES:
+                lk.LAUNCHES[key] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recs, text = _example_records(name, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            used = dict(lk.LAUNCHES)
+            for k in totals:
+                totals[k] += used[k]
+            refs, cpu_wall = pending[name].get(timeout=900)
+            for (label, rec), (_, ref) in zip(recs, refs):
+                if rec["status"] != ref["status"] or rec["counts"] != ref["counts"]:
+                    fail(f"examples {name} {label}: {rec['status']} {rec['counts']}, cpu {ref['status']} {ref['counts']}")
+                dx = float(np.abs(rec["x"] - ref["x"]).max())
+                if not dx <= X_TOL:
+                    fail(f"examples {name} {label}: x differs from the cpu run by {dx:.3e}")
+                status = rec["status"] if isinstance(rec["status"], str) else f"{rec['status'].count(1)}/{len(rec['status'])} Optimal"
+                counts = "/".join(str(c) if isinstance(c, int) else f"[{min(c)}..{max(c)}]" for c in rec["counts"])
+                print(f"examples {name} {label}: {status} {counts}, equal to the cpu run, |x-x_cpu|={dx:.3e}", flush=True)
+            last = [line for line in text.strip().splitlines() if line.strip()][-1:]
+            print(f"examples {name}: launches={used} wall={wall:.3f} s (cpu run {cpu_wall:.1f} s); "
+                  f"it printed {len(text.splitlines())} lines, the last: {last[0] if last else ''!r} [{card}]",
+                  flush=True)
+
+    # (b) perform_iteration against the CPU
+    pend = PendulumControl(N=128)
+    for label, problem, params, x0, key in (
+        ("Rosenbrock Params()", pc.Rosenbrock(), Params(), np.zeros(2), None),
+        ("pendulum N=128 PallasLDLT", pend, Params(**pc.PENDULUM_KWARGS), pend.x0_trajectory(), "rl"),
+    ):
+        ref, _ = _perform(problem, params, "cpu", x0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ours, used = _perform(problem, params, "cuda", x0)
+        wall = time.perf_counter() - t0
+        for k in totals:
+            totals[k] += used[k]
+        if key is not None and used[key] == 0:
+            fail(f"perform_iteration {label}: launches {used}, {key} not launched")
+        diffs = [float(np.abs(o - r).max()) if r.size else 0.0 for o, r in zip(ours, ref)]
+        if not all(np.isfinite(o).all() and o.shape == r.shape for o, r in zip(ours, ref)) or max(diffs) > PERFORM_TOL:
+            fail(f"perform_iteration {label}: |x, y, d - cpu| = {diffs}")
+        print(f"perform_iteration {label}: (x, y, d) within {max(diffs):.3e} of the cpu, launches={used} "
+              f"wall={wall:.3f} s [{card}]", flush=True)
+
+    # (c) the pendulum cases here, then the harness's process
+    rows = load_jax_rows()
+    failed = []
+    for name, key in PARITY_PENDULUM.items():
+        for k in lk.LAUNCHES:
+            lk.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        ours = pc.run_torch(name, "cuda")
+        wall = time.perf_counter() - t0
+        used = dict(lk.LAUNCHES)
+        for k in totals:
+            totals[k] += used[k]
+        if used[key] == 0:
+            fail(f"parity {name}: launches {used}, {key} not launched")
+        verdict, details = pc.compare(ours, rows[name], "cuda")
+        if verdict == "FAILED":
+            failed.append(name)
+        print(f"parity (c) {pc.format_line(name, verdict, details)} launches={used} wall={wall:.3f} s [{card}]",
+              flush=True)
+    harness, log_dir = parity
+    t_wait = time.perf_counter()
+    try:
+        rc = harness.wait(timeout=900)
+    finally:
+        BACKGROUND.remove(harness)
+    with open(os.path.join(log_dir, "parity.log")) as f:
+        lines = [line.rstrip() for line in f if line.strip()]
+    shutil.rmtree(log_dir, ignore_errors=True)
+    for line in lines:
+        print(f"parity (c) {line}", flush=True)
+    if rc != 0 or failed:
+        fail(f"phase 13 (c): the harness exited {rc}, pendulum cases failed: {failed or 'none'}")
+    cases = sum(1 for line in lines if re.match(r"\s*(equal|parted as expected|FAILED)  ", line))
+    print(f"parity (c) the harness's card subset: {cases} cases in its own process, waited for "
+          f"{time.perf_counter() - t_wait:.1f} s [{card}]", flush=True)
+    print(f"surface launches: {totals}", flush=True)
+    print(f"surface phase: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return totals
+
+
 def main():
     try:
         import torch
@@ -2436,6 +2693,13 @@ def main():
         precision_phase(card)
         print(json.dumps({"ok": True, "device": device}))
         return 0
+    if sys.argv[1:] == ["--only", "13"]:  # the surface phase alone, after the build
+        try:
+            surface_phase(card)
+        finally:
+            stop_background()
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     if sys.argv[1:] == ["--only", "12"]:  # the multi-device phase alone, after the build
         try:
             multi_device_phase(card)
@@ -2460,6 +2724,7 @@ def main():
         records["rl_batched"] = phase("3 batched kernel", batched_kernel_phase, card, path)
         phase("3 split", split_phase, card)
         sweeps = start_hs_sweeps()  # phase 12 (e), beside phases 4-11
+        parity = start_parity_subset()  # phase 13 (c), beside them too
         launches = phase("4 slice", slice_phase, card)
         launches["rl_batched"] = phase("5 fleet", fleet_phase, card)["rl_batched"]
         phase("6 headline", headline_phase, card)
@@ -2473,6 +2738,9 @@ def main():
             launches[key] += count
         phase("10 continuous", continuous_phase, card)
         for key, count in phase("11 precision", precision_phase, card).items():
+            launches[key] += count
+        # phase 13 before phase 12: it overlaps the HS sweeps that phase 12 waits for
+        for key, count in phase("13 surface", surface_phase, card, parity).items():
             launches[key] += count
         for key, count in phase("12 multi-device", multi_device_phase, card, sweeps).items():
             launches[key] += count

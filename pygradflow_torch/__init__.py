@@ -23,8 +23,9 @@ from .params import (  # noqa: F401
     StepControlType,
     StepSolverType,
 )
-from .problem import Problem  # noqa: F401
+from .problem import FuncProblem, Problem, QuadraticProblem  # noqa: F401
 from .result import SolverResult  # noqa: F401
+from .scale import Scaling  # noqa: F401
 from .solver import Solver  # noqa: F401
 from .status import SolverStatus  # noqa: F401
 

@@ -25,6 +25,8 @@ import torch
 from ..util import lanes, rowdot
 from . import flow as fl
 
+EV_CONVERGED = "converged"
+
 class EventCfg(NamedTuple):
     ctx: Any  # FlowCtx
     opt_tol: float

@@ -38,7 +38,7 @@ from ..log import logger
 from ..params import Params
 from ..result import SolverResult
 from ..solver import _resolve_device
-from ..status import SolverStatus
+from ..status import RUNNING, SolverStatus  # noqa: F401
 from ..timer import Timer
 from ..transform import Transformation
 from . import events as ev

@@ -13,7 +13,7 @@ from typing import Any, NamedTuple
 import torch
 
 from .eval import Fns
-from .util import dot, inf_norm, lanes, matvec
+from .util import dot, inf_norm, lanes, matvec, norm_mult
 
 
 class Iterate(NamedTuple):
@@ -85,6 +85,10 @@ def aug_lag_deriv_x(it: Iterate, rho, fns=None):
     return it.obj_grad + _jac_t(it, lanes(rho, 1) * it.cons + it.y, fns)
 
 
+def aug_lag_deriv_y(it: Iterate):
+    return it.cons
+
+
 def aug_lag_deriv_xx(fns: Fns, it: Iterate, rho):
     """``H(x, y + rho c) + rho J^T J``; with ``rho == 0.0`` (a Python float)
     the ``J^T J`` term is dropped, as the scaled step solvers need.  A
@@ -101,17 +105,26 @@ class ActiveSet(NamedTuple):
     at_lower: Any
     at_upper: Any
     at_both: Any
+    at_either: Any
+    violated: Any
+
+    @property
+    def satisfied(self):
+        return ~self.violated
 
 
 def compute_active_set(x, lb, ub, active_tol) -> ActiveSet:
     """Bound activity masks at a point (reference ``active_set.py``)."""
     at_lower = torch.abs(x - lb) <= active_tol
     at_upper = torch.abs(ub - x) <= active_tol
+    violated = (lb - x > active_tol) | (x - ub > active_tol)
     at_both = at_lower & at_upper
     return ActiveSet(
         at_lower=at_lower & ~at_both,
         at_upper=at_upper & ~at_both,
         at_both=at_both,
+        at_either=at_lower | at_upper,
+        violated=violated,
     )
 
 
@@ -189,3 +202,7 @@ def cons_nonlin(it: Iterate, other: Iterate, fns=None):
     val = (other.cons - pred) / lanes(torch.where(dx_dot == 0.0, 1.0, dx_dot), 1)
     close = torch.isclose(dx_dot, torch.zeros_like(dx_dot))
     return torch.where(lanes(close, 1), torch.zeros_like(val), val)
+
+
+def dist(it: Iterate, other: Iterate):
+    return norm_mult(it.x - other.x, it.y - other.y)

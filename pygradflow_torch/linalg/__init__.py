@@ -215,3 +215,10 @@ def linear_solver(solver_type: LinearSolverType, symmetric: bool = False) -> Lin
     if solver_type == LinearSolverType.GMRES:
         return _gmres()
     raise LinearSolverError(f"Unknown linear solver type {solver_type}")
+
+
+# the factors and solvers the JAX package's linalg namespace exports
+from .blocked_ldlt import ldlt_factor_blocked  # noqa: E402,F401
+from .ldlt import ldlt_factor, ldlt_num_neg_eigvals, ldlt_solve  # noqa: E402,F401
+from .minres import minres  # noqa: E402,F401
+from .plu import plu_factor, plu_solve, plu_solve_trans  # noqa: E402,F401

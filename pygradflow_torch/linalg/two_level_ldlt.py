@@ -23,6 +23,7 @@ import torch
 from ..util import matvec
 from .ldlt import ldlt_factor
 
+DEFAULT_SUPER_BLOCK = 1024
 MAX_SUPER_BLOCK = 1280
 """The right-looking kernel's limit (PALLAS_MAX_N): the two-level factor may
 pick any super-block up to it."""

@@ -79,6 +79,11 @@ class Problem(abc.ABC):
         self.cons_ub = cons_ub
 
     @property
+    def var_bounded(self) -> bool:
+        """Whether any variable bound is finite."""
+        return bool(np.isfinite(self.var_lb).any() or np.isfinite(self.var_ub).any())
+
+    @property
     def num_vars(self) -> int:
         (num_vars,) = self.var_lb.shape
         return num_vars

@@ -325,6 +325,22 @@ class Solver:
 
         self._loop = SolveLoop(self.transform, params, self.device, self.callbacks)
 
+    def perform_iteration(self, x0=None, y0=None):
+        """One implicit-Euler step from ``(x0, y0)`` at the initial lambda
+        and rho (reference ``solver.py:207-231``); returns ``(x, y, d)`` of
+        the iterate after the step, the start itself when the step was
+        rejected, as tensors on the solver's device."""
+        params = self.params
+        loop = self._loop
+
+        x, y = self.transform.create_transformed_initial(x0, y0, self.device)
+        state = loop.init_state(x, y)
+        state = loop.run_iteration(state)
+
+        it = state.it
+        d = bounds_dual(it, loop.lb, loop.ub, params.active_tol, loop.fns)
+        return self.transform.restore_sol(it.x, it.y, d)
+
     def solve(self, x0=None, y0=None, checkpoint_path=None, resume=False) -> SolverResult:
         """Solve the problem.  With ``checkpoint_path`` the loop state is
         written there (``checkpoint.py``) every ``jit_chunk`` iterations;

@@ -19,7 +19,7 @@ from ..iterate import Iterate, evaluate_iterate, iterate_eval_counts
 from ..linalg import LinearSolverType, linear_solver
 from ..util import lanes
 from .control import ControlCfg, ControlResult
-from .ip_solver import solve_ip
+from .ip_solver import IP_MAX_IT, solve_ip  # noqa: F401
 
 
 def make_optimizing(cfg: ControlCfg, lanes_form: bool = False):

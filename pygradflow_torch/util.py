@@ -248,6 +248,12 @@ def norm_mult(*args):
     return torch.sqrt(value)
 
 
+def keep_rows(mat, row_mask):
+    """Zero the rows of ``mat`` where ``row_mask`` is False, keeping the
+    shape (reference ``util.py:27-55``)."""
+    return torch.where(row_mask[..., :, None], mat, torch.zeros_like(mat))
+
+
 def inf_norm(x):
     """Infinity norm over the last axis that is 0 for empty vectors."""
     if x.shape[-1] == 0:
