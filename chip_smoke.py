@@ -169,6 +169,27 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    ``tools/torch_parity_jax.json`` under the harness's limits and its
    expected partings.  ``python3 chip_smoke.py --only 13`` runs the build
    and this phase alone.
+14. loop (run after phase 3, before the background processes start): the
+   solve loop on the device.  Each configuration of ``LOOP_RUNS``
+   (Rosenbrock and HS71 at ``Params()``, HS71 on the LDLT and PallasLDLT
+   tiers, the pendulum at N = 128 (B1') and N = 256 (B3'), phase 5's
+   fleet (B2'), the B=16384 headline, HS71 in f32,
+   ``MixedPrecisionSolver``'s two stages, and HS71 under each Newton type,
+   step control and penalty whose iteration reads no host) solves through
+   the graphed chunk (a CUDA graph per solver and width, replayed
+   ``jit_chunk`` times per host read) and through the eager chunk, in
+   turns: the two results bit for bit, the graphed solve one host read per
+   chunk and no capture when warm; ms per iteration, captures and their
+   seconds, the ldlt wrappers' launches (counted on the device inside a
+   graph, once per body run), and for six
+   of them the device's idle share and kernels per iteration over a warm
+   solve (``torch.profiler``); the headline's solves/s per route, the
+   minimum of 5 after a warm-up, with its spread.  At the end of the
+   script a problem that reads the host must fail its card solve, naming
+   its objective; HS71 solved as a graph before and after it, and through
+   ``--debug_nans``'s checked problem (the eager loop), gives the same
+   bits.  ``python3 chip_smoke.py --only 14`` runs the build and
+   this phase alone.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
@@ -2657,13 +2678,304 @@ def surface_phase(card, parity=None):
     for line in lines:
         print(f"parity (c) {line}", flush=True)
     if rc != 0 or failed:
-        fail(f"phase 13 (c): the harness exited {rc}, pendulum cases failed: {failed or 'none'}")
+        # the harness's verdicts and its traceback, if any, into the error itself
+        faults = [line for line in lines if "FAILED" in line] or lines[-20:]
+        fail(f"phase 13 (c): the harness exited {rc}, pendulum cases failed: {failed or 'none'}; "
+             "the harness's log:\n" + "\n".join(faults))
     cases = sum(1 for line in lines if re.match(r"\s*(equal|parted as expected|FAILED)  ", line))
     print(f"parity (c) the harness's card subset: {cases} cases in its own process, waited for "
           f"{time.perf_counter() - t_wait:.1f} s [{card}]", flush=True)
     print(f"surface launches: {totals}", flush=True)
     print(f"surface phase: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return totals
+
+
+# phase 14: the solve loop on the device.  Each configuration runs its
+# solve through the graphed chunk (the route of Params on the card) and
+# through the eager chunk (SolveLoop.eager_chunk / LaneLoop.eager_chunk,
+# the loop's per-iteration read), in turns, from the same start: the two
+# must give the same bits, the graphed solve one host read per chunk.
+LOOP_CHUNK_N = 128  # the single pendulum of B1'; B3' at N=256
+LOOP_OPTIONS = ["Full", "ActiveSet", "FixedActiveSet", "Globalized", "Exact", "ResiduumRatio", "Fixed",
+                "Constant", "DualEquilibration", "ParetoDecrease", "ObjectiveFilter", "LagrangianFilter"]
+LOOP_OPTION_IT = 60
+LOOP_PROFILED = {"(a) rosenbrock", "(a) hs71", "(c) pendulum N=128", "(c) pendulum N=256", "(d) fleet", "(e) headline"}
+
+
+def _loop_config(name):
+    """Kind ("single", "lanes" or "mixed"), problem, params and starts of the
+    phase 14 run ``name``."""
+    import numpy as np
+
+    import tests.torch_parity as tp
+    from pygradflow_torch import LinearSolverType, Params
+    from pygradflow_torch.runners.control import PendulumControl
+
+    hs71 = (np.array([1.0, 5.0, 5.0, 1.0, 0.0]), np.zeros(2))
+    pallas = dict(linear_solver_type=LinearSolverType.PallasLDLT, iteration_limit=3000, validate_input=False)
+    if name == "(a) rosenbrock":
+        return "single", tp.Rosenbrock(), Params(), (np.array([0.0, 0.0]), None)
+    if name == "(a) hs71":
+        return "single", tp.HS71(), Params(), hs71
+    if name == "(b) hs71 LDLT":
+        return "single", tp.HS71(), Params(linear_solver_type=LinearSolverType.LDLT), hs71
+    if name == "(b) hs71 PallasLDLT":
+        return "single", tp.HS71(), Params(linear_solver_type=LinearSolverType.PallasLDLT), hs71
+    if name.startswith("(c) pendulum N="):
+        problem = PendulumControl(N=int(name.split("=")[1]))
+        return "single", problem, Params(**pallas), (problem.x0_trajectory(), None)
+    if name == "(d) fleet":
+        problem, params, x0 = _fleet_config()
+        return "lanes", problem, params, (x0, None)
+    if name == "(e) headline":
+        return "lanes", tp.Rosenbrock(), Params(validate_input=False, jit_chunk=128), (_headline_starts(), None)
+    if name == "(f) hs71 f32":
+        return "single", tp.HS71(), Params(**SINGLE), hs71
+    if name == "(f) mixed":
+        return "mixed", tp.HS71(), Params(validate_input=False, jit_chunk=128), (_hs71_starts(1024), None)
+    option = name.split()[-1]
+    key = {"Exact": "step_control_type", "ResiduumRatio": "step_control_type", "Fixed": "step_control_type"}.get(option)
+    if key is None:
+        key = "newton_type" if option in ("Full", "ActiveSet", "FixedActiveSet", "Globalized") else "penalty_update"
+    # at most LOOP_OPTION_IT iterations: Fixed, DualEquilibration and
+    # Globalized take thousands on HS71
+    return "single", tp.HS71(), Params(**{key: option}, iteration_limit=LOOP_OPTION_IT), hs71
+
+
+LOOP_RUNS = (["(a) rosenbrock", "(a) hs71", "(b) hs71 LDLT", "(b) hs71 PallasLDLT",
+              f"(c) pendulum N={LOOP_CHUNK_N}", "(c) pendulum N=256", "(d) fleet", "(e) headline",
+              "(f) hs71 f32", "(f) mixed"] + [f"(g) hs71 {o}" for o in LOOP_OPTIONS])
+
+
+def _loops(solver):
+    """The solve loops of a Solver, a BatchedSolver or a
+    MixedPrecisionSolver's two stages."""
+    if hasattr(solver, "_loop"):
+        return [solver._loop]
+    if hasattr(solver, "loop"):
+        return [solver.loop]
+    return [solver.bulk.loop, solver.polish.loop]
+
+
+def _make_eager(solver):
+    """Send every chunk of ``solver`` through the eager loop."""
+    for loop in _loops(solver):
+        loop.chunk_route = lambda loop=loop: loop.eager_chunk
+    return solver
+
+
+def _device_trace(fn):
+    """``fn()`` under torch.profiler on the card: its result, the device's
+    idle share over the traced span (1 - the union of kernel, copy and set
+    intervals over the span from the first traced event to the last) and
+    the count of kernels the device ran."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not device:
+        return out, float("nan"), 0
+    start = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in device:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return out, 1.0 - busy / (end - start), kernels
+
+
+def _loop_bits(label, kind, graphed, eager):
+    """The graphed result against the eager one, bit for bit; returns the
+    fields that differ."""
+    import torch
+
+    if kind == "single":
+        pairs = [("x", graphed.x, eager.x), ("y", graphed.y, eager.y), ("d", graphed.d, eager.d)]
+        scalars = ("status", "iterations", "num_accepted_steps", "num_penalty_changes", "final_stat_res",
+                   "final_cons_violation", "dist_factor")
+        differ = [f for f in scalars if getattr(graphed, f) != getattr(eager, f)]
+        if graphed.num_evals != eager.num_evals:
+            differ.append("num_evals")
+    else:
+        pairs = [(f, getattr(graphed, f), getattr(eager, f))
+                 for f in ("x", "y", "d", "status", "iterations", "accepted_steps", "total_res", "stat_res")]
+        pairs += [(f"counters.{k}", a, b) for k, a, b in zip(graphed.counters._fields, graphed.counters, eager.counters)]
+        differ = []
+    differ += [f for f, a, b in pairs if not torch.equal(a, b)]
+    return differ
+
+
+def loop_phase(card):
+    """Phase 14: every configuration of ``LOOP_RUNS`` through the graphed
+    and the eager chunk, in turns, on the card.  Holds their results bit for
+    bit and the graphed solve to one host read per chunk; prints ms per
+    iteration, captures, kernel launches per iteration, the ldlt wrappers'
+    launches, and (for ``LOOP_PROFILED``) the device's idle share over a
+    warm solve, for both routes.  Returns the ldlt launches of the graphed
+    runs."""
+    import math
+
+    import torch
+
+    from pygradflow_torch import Solver
+    from pygradflow_torch.linalg import ldlt_kernels as lk
+    from pygradflow_torch.parallel import BatchedSolver, MixedPrecisionSolver
+    from pygradflow_torch.util import HOST_READS
+
+    totals = dict.fromkeys(lk.LAUNCHES, 0)
+    rows = {}
+    for name in LOOP_RUNS:
+        kind, problem, params, (x0, y0) = _loop_config(name)
+        x0 = torch.tensor(x0, device="cuda")
+        y0 = None if y0 is None else torch.tensor(y0, device="cuda")
+
+        def make():
+            if kind == "single":
+                return Solver(problem, params, device="cuda")
+            if kind == "lanes":
+                return BatchedSolver(problem, params, device="cuda")
+            return MixedPrecisionSolver(problem, params, device="cuda")
+
+        solvers = {"graphed": make(), "eager": _make_eager(make())}
+        record = {}
+        results = {}
+        for turn in range(2):  # first solves, then a warm turn
+            for route, solver in solvers.items():
+                lk.LAUNCHES.update(dict.fromkeys(lk.LAUNCHES, 0))
+                HOST_READS.clear()
+                captures = sum(loop.graph.captures for loop in _loops(solver))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solver.solve(x0, y0) if kind == "single" else solver.solve(x0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                iters = res.iterations if kind == "single" else int(res.iterations.max())
+                if kind == "mixed":
+                    iters += int(solver.bulk_result.iterations.max())
+                new_captures = sum(loop.graph.captures for loop in _loops(solver)) - captures
+                if route == "graphed" and turn > 0 and new_captures:
+                    fail(f"loop {name}: a warm solve captured {new_captures} graphs")
+                reads = dict(HOST_READS)
+                if route == "graphed":
+                    chunks = sum(math.ceil((iters + 1) / loop.params.jit_chunk) for loop in _loops(solver))
+                    if set(reads) - {"chunk"} or reads.get("chunk", 0) > chunks + 2 * len(_loops(solver)):
+                        fail(f"loop {name}: host reads {reads} over {iters} iterations")
+                entry = record.setdefault(route, dict(walls=[]))
+                entry["walls"].append(wall)
+                entry.update(iters=iters, reads=reads, launches=dict(lk.LAUNCHES))
+                if turn == 0:
+                    entry["first"] = wall
+                    entry["captures"] = new_captures
+                    entry["capture_s"] = sum(loop.graph.capture_seconds for loop in _loops(solver))
+                    for key in totals:
+                        totals[key] += lk.LAUNCHES[key] if route == "graphed" else 0
+                results[route] = res
+        differ = _loop_bits(name, kind, results["graphed"], results["eager"])
+        if differ:
+            fail(f"loop {name}: graphed and eager differ in {differ}")
+        if name in LOOP_PROFILED:
+            for route, solver in solvers.items():
+                torch.cuda.synchronize()
+                _, idle, kernels = _device_trace(
+                    lambda: solver.solve(x0, y0) if kind == "single" else solver.solve(x0))
+                record[route].update(idle=idle, kernels=kernels)
+        g, e = record["graphed"], record["eager"]
+        for route, r in record.items():
+            warm = r["walls"][1]
+            line = (f"loop {name} [{route}]: {results[route].status.name if kind == 'single' else 'lanes'} "
+                    f"iterations {r['iters']} ms/iter={1e3 * warm / r['iters']:.3f} (warm, first "
+                    f"{r['first']:.3f} s) host reads {r['reads']} ldlt launches {r['launches']}")
+            if route == "graphed":
+                line += f" captures {r['captures']} in {r['capture_s']:.3f} s"
+            if "idle" in r:
+                line += (f" device idle {100 * r['idle']:.1f}% kernels/iter "
+                         f"{r['kernels'] / r['iters']:.1f}")
+            print(line + f" [{card}]", flush=True)
+        print(f"loop {name}: graphed == eager bit for bit; eager/graphed wall "
+              f"{e['walls'][1] / g['walls'][1]:.2f}x", flush=True)
+        rows[name] = record
+
+    # the headline's solves/s: a warm-up, then the minimum of 5, in turns
+    kind, problem, params, (x0, _) = _loop_config("(e) headline")
+    x0 = torch.tensor(x0, device="cuda")
+    solvers = {"graphed": BatchedSolver(problem, params, device="cuda"),
+               "eager": _make_eager(BatchedSolver(problem, params, device="cuda"))}
+    for solver in solvers.values():
+        solver.solve(x0)
+    walls = {route: [] for route in solvers}
+    for _ in range(5):
+        for route, solver in solvers.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.solve(x0)
+            torch.cuda.synchronize()
+            walls[route].append(time.perf_counter() - t0)
+    for route, w in walls.items():
+        print(f"loop headline solves/s [{route}]: {HEADLINE_B / min(w):.1f} (min of 5 after a warm-up; "
+              f"walls {min(w):.4f}-{max(w):.4f} s, spread {100 * (max(w) / min(w) - 1):.1f}%) [{card}]",
+              flush=True)
+    return totals
+
+
+def host_reading_problem_check():
+    """A problem whose objective branches on a tensor on the host cannot be
+    captured: the card solve raises, naming the objective.  The process
+    goes on solving as a CUDA graph after it: HS71 solved before and after
+    gives the same bits.  A problem that declares ``evaluates_on_host``
+    (``--debug_nans``'s checked HS71) takes the eager loop, to the same
+    bits."""
+    import numpy as np
+    import torch
+
+    from pygradflow_torch import Params, Problem, Solver
+    from pygradflow_torch.runners.hs import HS_BY_NAME
+    from pygradflow_torch.runners.hs_runner import HSInstance
+    from pygradflow_torch.util import GraphCaptureError
+
+    class Branching(Problem):
+        def __init__(self):
+            super().__init__(np.full(2, -np.inf), np.full(2, np.inf))
+
+        def obj(self, x):
+            return torch.dot(x, x) if bool(x[0] > 0) else torch.dot(x, x) + 1.0
+
+    hs71 = HSInstance(HS_BY_NAME["hs71"])
+
+    def solve_hs71(**kwargs):
+        res = hs71.solve(Params(), "cuda", **kwargs)
+        return res, torch.cat([res.x, res.y, res.d]).cpu()
+
+    before, bits = solve_hs71()
+    try:
+        Solver(Branching(), Params(validate_input=False), device="cuda").solve(np.array([1.0, 1.0]))
+    except GraphCaptureError as err:
+        if "objective" not in str(err):
+            fail(f"host-reading problem: the error does not name the objective: {err}")
+        print(f"loop: a problem that reads the host raises: {str(err)[:120]}", flush=True)
+    else:
+        fail("host-reading problem: the card solve did not raise")
+    for label, kwargs in (("graphed after the failed capture", {}), ("--debug_nans (eager)", {"debug_nans": True})):
+        res, again = solve_hs71(**kwargs)
+        same = torch.equal(again, bits) and (res.status, res.iterations) == (before.status, before.iterations)
+        if not same:
+            fail(f"hs71 {label}: {res.status.name} {res.iterations} iterations, "
+                 f"not the bits of the solve before ({before.status.name} {before.iterations})")
+        print(f"loop: hs71 {label}: {'same bits' if same else 'PARTED'}, {res.iterations} iterations", flush=True)
 
 
 def main():
@@ -2700,6 +3012,11 @@ def main():
             stop_background()
         print(json.dumps({"ok": True, "device": device}))
         return 0
+    if sys.argv[1:] == ["--only", "14"]:  # the solve loop on the device alone, after the build
+        loop_phase(card)
+        host_reading_problem_check()
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     if sys.argv[1:] == ["--only", "12"]:  # the multi-device phase alone, after the build
         try:
             multi_device_phase(card)
@@ -2723,10 +3040,13 @@ def main():
         two_level_phase(card, path)
         records["rl_batched"] = phase("3 batched kernel", batched_kernel_phase, card, path)
         phase("3 split", split_phase, card)
+        # phase 14 on a quiet card, before the background processes start
+        launches = phase("14 loop", loop_phase, card)
         sweeps = start_hs_sweeps()  # phase 12 (e), beside phases 4-11
         parity = start_parity_subset()  # phase 13 (c), beside them too
-        launches = phase("4 slice", slice_phase, card)
-        launches["rl_batched"] = phase("5 fleet", fleet_phase, card)["rl_batched"]
+        for key, count in phase("4 slice", slice_phase, card).items():
+            launches[key] += count
+        launches["rl_batched"] += phase("5 fleet", fleet_phase, card)["rl_batched"]
         phase("6 headline", headline_phase, card)
         for key, count in phase("7 control", control_phase, card).items():
             launches[key] += count
@@ -2744,6 +3064,7 @@ def main():
             launches[key] += count
         for key, count in phase("12 multi-device", multi_device_phase, card, sweeps).items():
             launches[key] += count
+        host_reading_problem_check()
     finally:
         stop_background()
 

@@ -22,7 +22,6 @@ versioned (positional ``leaf_{i}`` keys) load when the leaf count matches.
 import os
 
 import numpy as np
-import torch
 
 from .convert import tensor_like
 from .eval import Counters
@@ -32,8 +31,8 @@ FORMAT_VERSION = 2
 
 
 def _leaves(state) -> dict:
-    """The state's leaves by their key, in the JAX package's flattening
-    order: tensors, Python numbers and bools."""
+    """The state's tensors by their key, in the JAX package's flattening
+    order."""
     out = {f"leaf.it.{k}": v for k, v in state.it._asdict().items()}
     out.update({"leaf.lamb": state.lamb, "leaf.rho": state.rho, "leaf.error_sum": state.error_sum})
     if state.pstate != ():
@@ -47,22 +46,16 @@ def _leaves(state) -> dict:
     return out
 
 
-def _host(value, dtype):
-    """A leaf as the numpy array the snapshot holds: Python floats in the
-    solve's dtype, counts as int32, as the JAX package writes them."""
-    if torch.is_tensor(value):
-        return value.detach().cpu().numpy()
-    if isinstance(value, bool):
-        return np.asarray(value)
-    if isinstance(value, int):
-        return np.asarray(value, dtype=np.int32)
-    return np.asarray(value, dtype=dtype)
+def _host(value):
+    """A leaf as the numpy array the snapshot holds, counts as int32, as the
+    JAX package writes them."""
+    value = value.detach().cpu().numpy()
+    return value.astype(np.int32) if value.dtype == np.int64 else value
 
 
 def save_state(path: str, state) -> None:
     """Write a ``solver.LoopState`` to ``path`` (.npz), atomically."""
-    dtype = state.it.x.detach().cpu().numpy().dtype
-    arrays = {k: _host(v, dtype) for k, v in _leaves(state).items()}
+    arrays = {k: _host(v) for k, v in _leaves(state).items()}
     arrays["__format_version__"] = np.asarray(FORMAT_VERSION)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:  # a file handle: savez must not append ".npz"
@@ -70,16 +63,6 @@ def save_state(path: str, state) -> None:
     os.replace(tmp, path)
 
 
-def _restore(value, example):
-    """A snapshot's array in the form of the example leaf: a tensor of its
-    dtype on its device, or a Python number."""
-    if torch.is_tensor(example):
-        return tensor_like(value, example)
-    if isinstance(example, bool):
-        return bool(value)
-    if isinstance(example, int):
-        return int(value)
-    return float(value)
 
 
 def load_state(path: str, example_state):
@@ -112,7 +95,7 @@ def load_state(path: str, example_state):
                 )
             restored = {k: data[k] for k in keys}
 
-    leaf = {k: _restore(restored[k], example[k]) for k in keys}
+    leaf = {k: tensor_like(restored[k], example[k]) for k in keys}
 
     def group(prefix):
         return {k[len(prefix):]: v for k, v in leaf.items() if k.startswith(prefix)}

@@ -1,8 +1,9 @@
 """Evaluation layer: dtype casting, counters, validation (counterpart of
 ``pygradflow_tpu/eval.py``).
 
-Counters are carried in an immutable ``Counters`` tuple: Python ints for
-one instance, (B,) integer tensors for a lane stack.  A non-finite
+Counters are carried in an immutable ``Counters`` tuple of int64 tensors
+on the solve's device: 0-dim for one instance, (B,) for a lane stack, so
+that a CUDA graph of the loop advances them on every replay.  A non-finite
 evaluation inside the loop does not raise: it surfaces as a non-finite
 candidate, which the step controller rejects with doubled lambda.  Shapes
 and finiteness at the initial point are checked eagerly.
@@ -54,8 +55,8 @@ class Counters(NamedTuple):
     lag_hess: int = 0
 
     @staticmethod
-    def zero():
-        return Counters()
+    def zero(device="cpu"):
+        return Counters(*(torch.zeros((), dtype=torch.int64, device=device) for _ in range(5)))
 
     @staticmethod
     def zero_lanes(batch: int, device):

@@ -20,17 +20,26 @@ The left-looking kernel splits its update products over K and sums the
 partial tiles in a workspace that its wrapper allocates per call.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
-main path went through the kernels.
+main path went through the kernels.  A wrapper called while the solve
+loop's iteration is captured as a CUDA graph records its launch on the
+capture stream (``torch.cuda.current_stream``), and its workspace and
+output come from the graph's memory pool.  It counts its launch there too:
+``util.count_launch`` captures an add on a device counter beside the
+kernel, so every replayed body counts it, and the loop's one read per
+chunk brings the count to ``LAUNCHES``.
 """
 
 import ctypes
 
 import torch
 
+from ..util import count_launch, register_launches
+
 RL_BLOCK = 128
 LL_BLOCK = 64
 
 LAUNCHES = {"rl": 0, "ll": 0, "rl_batched": 0}
+register_launches(LAUNCHES)
 
 
 def _padded_size(n: int, block: int) -> int:
@@ -151,7 +160,7 @@ def _launch(key, fn_name, mat, block):
         )
     if err != 0:
         raise RuntimeError(f"{fn_name} failed with CUDA error {err}")
-    LAUNCHES[key] += 1
+    count_launch(LAUNCHES, key, mat.device)
     return out[..., :n, :n]
 
 

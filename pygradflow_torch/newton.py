@@ -21,12 +21,11 @@ for ``ActiveSetType.Standard``).  The five variants of the reference
 - Globalized: Full Newton with an Armijo line search on 1/2 ||F||^2; an
   exhausted search gives a NaN step, which the controller rejects.
 
-Every variant serves one instance and a lane stack alike.  Globalized's
-line search stops for one instance when its trial is accepted (one host
-read per trial).  On a lane stack it reads nothing on the host: it runs
-all ``linesearch_max_it`` trials, where the JAX package's
-``lax.while_loop`` stops once no lane searches, and a lane that has
-finished keeps its step and its counters.  A matrix-free step solver
+Every variant serves one instance and a lane stack alike, and reads
+nothing on the host.  Globalized's line search runs all
+``linesearch_max_it`` trials, where the JAX package's ``lax.while_loop``
+stops once its trial is accepted (on a lane stack: once no lane
+searches); a search that has finished keeps its step and its counters.  A matrix-free step solver
 factors from the iterate instead of the dense H and J (``_factorize``).
 """
 
@@ -144,7 +143,6 @@ def _globalized(cfg: NewtonCfg):
     def step(carry, cur: Iterate, counters: Counters):
         func, rho, tau = carry
         orig = func.orig
-        batched = cur.x.ndim > 1
 
         # as in the JAX package (newton.py:166-174): no fns for the active
         # set and the residual, and the direction from the residual at the
@@ -167,8 +165,6 @@ def _globalized(cfg: NewtonCfg):
         done = res_value <= params.newton_tol
         for _ in range(params.linesearch_max_it):
             searching = ~done
-            if not batched and bool(done):
-                break
             cand = evaluate_iterate(fns, cur.x - dx, cur.y - dy)
             cres = _half_norm_sq(*impl.value_at(func, cand, rho))
             ok = (cres <= params.newton_tol) | (cres <= res_value + 1e-4 * alpha * inner)
@@ -177,7 +173,7 @@ def _globalized(cfg: NewtonCfg):
             dx = torch.where(lanes(searching & ~ok, 1), lanes(half, 1) * dx0, dx)
             dy = torch.where(lanes(searching & ~ok, 1), lanes(half, 1) * dy0, dy)
             counters_n = counters.add(**iterate_eval_counts(m))
-            counters = select(searching, counters_n, counters) if batched else counters_n
+            counters = select(searching, counters_n, counters)
             done = done | (searching & ok)
 
         # an exhausted search fails: a non-finite step forces rejection

@@ -9,19 +9,27 @@ decision is a per-lane ``torch.where``.  ``torch.func.vmap`` serves only the
 problem's derivatives (``eval.lane_fns``).  Lanes are independent: a lane's
 trajectory does not depend on the others or on the batch width.
 
-Each iteration reads one value on the host, whether any lane still runs.
-Exact step control and Globalized Newton run their inner loops to the
-limit with no host read.  The inner loops of BoxReduced and Optimizing
+One lockstep iteration (``LaneLoop.body``) reads nothing on the host: Exact
+step control and Globalized Newton run their inner loops to the limit.  A
+chunk runs up to ``params.jit_chunk`` bodies and the host reads the status
+vector once per chunk (``LaneLoop.read``, ``util.HOST_READS["chunk"]``), as
+the JAX package's ``_run_chunk`` does.  On the card the body is a CUDA
+graph (``util.ChunkGraph``), captured at the first use of each width and
+replayed ``jit_chunk`` times per chunk (a lane whose status is terminal
+passes through a replay unchanged); on the CPU, or for a configuration in
+``solver.EAGER_ON_CARD``, the same body runs eagerly, checking before each
+iteration whether a lane still runs (on the card one host read each,
+``HOST_READS["eager"]``).  The inner loops of BoxReduced and Optimizing
 (the box solver's iterations, the interior point's), MINRES's iterations
 and GMRES's restarts end when no lane still runs, read on the host once
 per iteration (MINRES: every ``minres.CHECK_EVERY``), where the JAX
-package's vmapped ``lax.while_loop`` decides on the device.  A lane that
-has left such a loop keeps its values bit for bit.
-A lane whose status is terminal is frozen: it keeps computing in lockstep,
-and its result is discarded.  ``compact`` harvests terminated lanes at
-chunk boundaries and re-packs the running remainder into power-of-four
-width tiers (``_solve_compacting``), so stragglers run at straggler width;
-only then is the status vector read on the host.
+package's vmapped ``lax.while_loop`` decides on the device; these keep the
+eager loop.  A lane that has left such a loop keeps its values bit for
+bit.  A lane whose status is terminal is frozen: it keeps computing in
+lockstep, and its result is discarded.  ``compact`` harvests terminated
+lanes at chunk boundaries and re-packs the running remainder into
+power-of-four width tiers (``_solve_compacting``), so stragglers run at
+straggler width; each tier has a graph of its own.
 """
 
 from typing import Any, NamedTuple, Optional
@@ -45,12 +53,12 @@ from ..iterate import (
 from ..params import Params
 from ..penalty import penalty_strategy
 from ..problem import Problem
-from ..solver import _resolve_device
+from ..solver import _clone_tree, _diagnose, _resolve_device, graph_route
 from ..status import RUNNING, SolverStatus
-from ..step.control import compute_step_lanes, make_control_cfg, make_controller
+from ..step.control import compute_step, make_control_cfg, make_controller
 from ..timer import Timer
 from ..transform import Transformation
-from ..util import select, tree_map
+from ..util import HOST_READS, ChunkGraph, add_device_launches, device_launches, select, tree_map
 
 
 class ParametricProblem(Problem):
@@ -133,17 +141,28 @@ class LaneLoop:
             self.iteration_limit = int(params.iteration_limit)
         else:
             self.iteration_limit = int(params.iteration_limit_default)
+        self._bound = {}
         self.bind(None)
+        self.graph = ChunkGraph(self.body, lambda s, fns=transform.fns: _diagnose(fns, s.it.x[0], s.it.y[0]))
 
     def bind(self, data):
-        """Build the lane closures for the data of the lanes now in the
-        stack (``None`` for a plain problem)."""
-        self.fns = lane_fns(self.transform.fns, data)
-        self.cfg = make_control_cfg(self.fns, self.params, self.lb, self.ub)
-        self.controller = make_controller(self.cfg, lanes=True)
-        self.penalty_initial, self.penalty_update = penalty_strategy(
-            self.params, self.m, self.fns, self.device, lanes=True
-        )
+        """Point the lane closures at the data of the lanes now in the stack
+        (``None`` for a plain problem).  The closures of each width read a
+        buffer of their own, which ``data`` is copied into, so that a CUDA
+        graph captured on them sees the data of every later bind."""
+        key = None if data is None else tuple((tuple(a.shape), a.dtype) for a in data)
+        bound = self._bound.get(key)
+        if bound is None:
+            buf = None if data is None else tuple(a.clone() for a in data)
+            fns = lane_fns(self.transform.fns, buf)
+            cfg = make_control_cfg(fns, self.params, self.lb, self.ub)
+            penalty = penalty_strategy(self.params, self.m, fns, self.device)
+            bound = self._bound[key] = (buf, fns, cfg, make_controller(cfg), penalty)
+        elif data is not None:
+            for dst, src in zip(bound[0], data):
+                if dst is not src:
+                    dst.copy_(src)
+        _, self.fns, self.cfg, self.controller, (self.penalty_initial, self.penalty_update) = bound
 
     def init_state(self, x, y) -> LaneState:
         params = self.params
@@ -192,10 +211,10 @@ class LaneLoop:
 
     def run_iteration(self, state: LaneState) -> LaneState:
         """One outer iteration on every lane (``SolveLoop.run_iteration``)."""
-        ctrl = compute_step_lanes(
+        ctrl = compute_step(
             self.cfg, self.controller, state.it, state.lamb, state.rho,
             state.error_sum, state.counters,
-        )
+        ).ctrl
         next_it = ctrl.iterate
         step_norm = torch.linalg.vector_norm(next_it.x - state.it.x, dim=-1) + torch.linalg.vector_norm(
             next_it.y - state.it.y, dim=-1
@@ -230,17 +249,53 @@ class LaneLoop:
         status = torch.where(new.status == RUNNING, self.check_terminate(new), new.status)
         return select(state.status == RUNNING, new._replace(status=status), state)
 
-    def run_chunk(self, state: LaneState, chunk: int) -> LaneState:
-        """At most ``chunk`` iterations while a lane runs: the one host
-        read per iteration."""
-        for _ in range(chunk):
+    def eager_chunk(self, state: LaneState, k: int) -> LaneState:
+        """Up to ``k`` bodies run eagerly while a lane runs: on the CPU the
+        status is in host memory, on the card each check is a host read
+        (``HOST_READS["eager"]``)."""
+        for _ in range(k):
+            if state.status.device.type != "cpu":
+                HOST_READS["eager"] += 1
             if not bool(torch.any(state.status == RUNNING)):
                 break
             state = self.body(state)
         return state
 
+    def graphed_chunk(self, state: LaneState, k: int) -> LaneState:
+        """``k`` bodies replayed as the CUDA graph of this width, a
+        terminal lane unchanged by them; no host read."""
+        return self.graph.run(state, k)
+
+    def chunk_route(self):
+        """The chunk runner, decided from ``params`` before the solve: the
+        graph on the card unless the configuration is in
+        ``solver.EAGER_ON_CARD``."""
+        if self.device.type == "cuda" and graph_route(self.params, problem=self.transform.orig_problem) is None:
+            return self.graphed_chunk
+        return self.eager_chunk
+
+    def run_chunk(self, state: LaneState, chunk: int) -> LaneState:
+        """At most ``chunk`` iterations while a lane runs, through the
+        route of ``chunk_route``; no host read."""
+        return self.chunk_route()(state, chunk)
+
+    def read(self, state: LaneState):
+        """The status vector on the host (numpy): the one host read per
+        chunk.  On the graphed route it carries the kernel launches that the
+        chunk's bodies counted on the device (``util.add_device_launches``)."""
+        HOST_READS["chunk"] += 1
+        if self.chunk_route() != self.graphed_chunk:
+            return state.status.cpu().numpy()
+        device = state.status.device
+        launches = device_launches(device)
+        packed = torch.cat([state.status, launches]).cpu().numpy()
+        lanes = state.status.numel()
+        add_device_launches(device, packed[lanes:])
+        return packed[:lanes]
+
     def finalize(self, state: LaneState):
         params = self.params
+        state = _clone_tree(state)  # a graph's buffers: the next solve overwrites them
         it = state.it
         d = bounds_dual(it, self.lb, self.ub, params.active_tol, self.fns)
         x, y, d = self.transform.restore_sol(it.x, it.y, d)
@@ -352,7 +407,7 @@ class BatchedSolver:
         else:
             while True:
                 state = loop.run_chunk(state, params.jit_chunk)
-                if not bool(torch.any(state.status == RUNNING)):
+                if not (loop.read(state) == RUNNING).any():
                     break
                 if timer.reached_time_limit():
                     state = _time_out(state)
@@ -392,7 +447,7 @@ class BatchedSolver:
 
         while True:
             state = loop.run_chunk(state, chunk)
-            running = state.status[: active.size].cpu().numpy() == RUNNING
+            running = loop.read(state)[: active.size] == RUNNING
             timed_out = timer.reached_time_limit()
             if timed_out or not running.any():
                 break

@@ -132,10 +132,10 @@ class ShardedSolver:
         chunk = self.params.jit_chunk
         return run_per_device(self.mesh, lambda k, s: self._loop(k).run_chunk(s, chunk), states)
 
-    @staticmethod
-    def _local_running(states) -> int:
-        """The running lanes over the shards: the host's vote."""
-        return sum(int(torch.count_nonzero(s.status == RUNNING)) for s in states)
+    def _local_running(self, states) -> int:
+        """The running lanes over the shards: the host's vote, one read of
+        each shard's status per chunk (``LaneLoop.read``)."""
+        return sum(int((self._loop(k).read(s) == RUNNING).sum()) for k, s in enumerate(states))
 
     def _finalize(self, states) -> BatchResult:
         # each shard's loop is still bound to that shard's data

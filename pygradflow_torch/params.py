@@ -339,15 +339,6 @@ class Params:
             return torch.float32
         return torch.float64
 
-    @property
-    def scalar_type(self):
-        """The numpy type of a solve's scalars held on the host (lambda, rho,
-        the PI sum, the path length): each operation on it rounds to the
-        precision of ``dtype``, as the JAX package's 0-dim arrays do."""
-        if self.precision == Precision.Single:
-            return np.float32
-        return np.float64
-
     def annotations(self):
         return type(self).__annotations__.items()
 

@@ -7,10 +7,9 @@
 The six strategies of the reference (``pygradflow/penalty.py``): Constant,
 DualNorm (the default), DualEquilibration, ParetoDecrease, and the filters
 ObjectiveFilter and LagrangianFilter.  Each is written once on tensors and
-serves both forms: for one instance ``rho`` and ``accept`` come back as a
-Python float and bool (one host read per update; rho goes in as a 0-dim CPU
-tensor, which costs no copy to the card); for a lane stack they are
-(B,) tensors, and ``initial(batch)`` gives the lane state.
+serves both forms: ``rho`` and ``accept`` are 0-dim tensors for one
+instance and (B,) tensors for a lane stack, with no host read, and
+``initial(batch)`` gives the lane state.
 
 The reference keeps a filter's Pareto front as an unbounded list; here, as
 in the JAX package, it is a ring of ``params.filter_capacity`` entries with
@@ -185,11 +184,11 @@ _STRATEGIES = {
 _NEED_CONS = (PenaltyUpdate.DualNorm, PenaltyUpdate.DualEquilibration, PenaltyUpdate.ParetoDecrease)
 
 
-def penalty_strategy(params: Params, num_cons: int, fns=None, device="cpu", lanes: bool = False):
+def penalty_strategy(params: Params, num_cons: int, fns=None, device="cpu"):
     """Factory keyed on PenaltyUpdate (reference ``penalty.py:258-274``).
     ``fns`` routes the J^T products of a matrix-free iterate through
-    ``cons_vjp``; ``device`` holds a filter's state; ``lanes`` selects the
-    form for a lane stack, whose ``initial`` takes the batch size."""
+    ``cons_vjp``; ``device`` holds a filter's state; ``initial`` takes the
+    batch size of a lane stack (None for one instance)."""
     pu = params.penalty_update
     if pu not in _STRATEGIES:
         raise ValueError("Invalid penalty update strategy")
@@ -201,7 +200,7 @@ def penalty_strategy(params: Params, num_cons: int, fns=None, device="cpu", lane
         state = _filter_initial(params, device, batch) if is_filter else ()
         return params.rho, state
 
-    def update_lanes(prev: Iterate, nxt: Iterate, rho, state):
+    def update(prev: Iterate, nxt: Iterate, rho, state):
         if passive:
             return PenaltyResult(rho, torch.ones_like(rho, dtype=torch.bool), state)
         rho_n, accept, state_n = rule(prev, nxt, rho, state)
@@ -209,15 +208,4 @@ def penalty_strategy(params: Params, num_cons: int, fns=None, device="cpu", lane
             accept = torch.ones_like(rho, dtype=torch.bool)
         return PenaltyResult(rho_n, accept, state_n)
 
-    def update(prev: Iterate, nxt: Iterate, rho, state):
-        if passive:
-            return PenaltyResult(rho, True, state)
-        # a 0-dim CPU tensor acts as a scalar beside card tensors: no copy
-        # to the card, so the read of rho_n below is the update's only sync
-        rho_n, accept, state_n = rule(prev, nxt, torch.tensor(rho, dtype=nxt.x.dtype), state)
-        if accept is None:
-            return PenaltyResult(rho_n.item(), True, state_n)
-        rho_n, accept = torch.stack([rho_n, accept.to(rho_n.dtype)]).tolist()
-        return PenaltyResult(rho_n, bool(accept), state_n)
-
-    return initial, update_lanes if lanes else update
+    return initial, update

@@ -44,6 +44,8 @@ def _like(value, x):
 class CUTEstProblem(Problem):
     """General constrained CUTEst problem through host callbacks."""
 
+    evaluates_on_host = True  # the solve loop runs eagerly (solver.EAGER_ON_CARD)
+
     def __init__(self, cutest):
         self._cutest = cutest
 
@@ -89,6 +91,8 @@ class CUTEstNEProblem(Problem):
     squares: ``min 1/2 ||c(x)||^2`` with gradient ``J^T c`` and the
     Gauss-Newton Hessian ``J^T J``; the translated problem has no
     constraints."""
+
+    evaluates_on_host = True
 
     def __init__(self, cutest):
         self._cutest = cutest

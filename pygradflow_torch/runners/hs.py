@@ -73,17 +73,40 @@ def _a(*vals):
     return np.array(vals, dtype=np.float64)
 
 
+_CONSTANTS = {}
+"""The constant tensors of ``_vec``, made once per device and dtype: a copy
+from host memory inside a function would stop the solve loop from being
+captured as a CUDA graph."""
+
+
+def _frozen(vals):
+    return tuple(_frozen(v) if isinstance(v, (list, tuple)) else float(v) for v in vals)
+
+
 def _vec(x, vals):
     """The tensor of ``vals`` in ``x``'s dtype on ``x``'s device: a vector
     of tensors and Python floats, or a (nested) list of constants."""
     if not any(torch.is_tensor(v) for v in vals):
-        return torch.tensor(vals, dtype=x.dtype, device=x.device)
+        key = (x.device, x.dtype, _frozen(vals))
+        if key not in _CONSTANTS:
+            _CONSTANTS[key] = torch.tensor(vals, dtype=x.dtype, device=x.device)
+        return _CONSTANTS[key]
     return torch.stack([v if torch.is_tensor(v) else _const(x, v) for v in vals])
 
 
 def _const(x, value):
     """A 0-dim constant in ``x``'s dtype on ``x``'s device."""
     return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
+def _prod(x):
+    """The product of a vector's entries as a chain of multiplications, in
+    ``torch.prod``'s order on these lengths: the derivative of
+    ``torch.prod`` takes a scan that a CUDA graph cannot capture."""
+    out = x[0]
+    for i in range(1, x.shape[0]):
+        out = out * x[i]
+    return out
 
 
 def _arange(x, start, stop):
@@ -296,7 +319,7 @@ HS_SPECS = [
         var_lb=np.ones(4),
         var_ub=np.full(4, 5.0),
         x0=_a(1.0, 5.0, 5.0, 1.0),
-        cons=lambda x: _vec(x, [torch.prod(x), torch.dot(x, x)]),
+        cons=lambda x: _vec(x, [_prod(x), torch.dot(x, x)]),
         cons_lb=_a(25.0, 40.0),
         cons_ub=_a(INF, 40.0),
         x_opt=_a(1.0, 4.74299964, 3.82114998, 1.37940829),
@@ -1376,7 +1399,7 @@ HS_SPECS = [
         name="hs110",
         obj=lambda x: (
             torch.sum(torch.log(x - 2.0) ** 2 + torch.log(10.0 - x) ** 2)
-            - torch.prod(x) ** 0.2
+            - _prod(x) ** 0.2
         ),
         var_lb=np.full(10, 2.001),
         var_ub=np.full(10, 9.999),

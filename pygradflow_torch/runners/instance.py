@@ -46,6 +46,8 @@ class FiniteCheckProblem:
     ``FloatingPointError``.  Every other attribute is the wrapped
     problem's."""
 
+    evaluates_on_host = True  # each check reads the host: the solve loop runs eagerly
+
     _CHECKED = ("obj", "obj_grad", "cons", "cons_jac", "lag_hess", "lag_hvp", "cons_vjp", "cons_jvp")
 
     def __init__(self, problem):

@@ -1,25 +1,34 @@
 """The solve loop: implicit-Euler homotopy steps (counterpart of
 ``pygradflow_tpu/solver.py``).
 
-The JAX package runs the loop as ``lax.while_loop`` chunks with masked,
-branchless state updates.  Here it is an eager Python loop that takes the
-same decisions in the same order: termination in the reference's priority
-(``check_terminate``), then one step with its penalty update and veto
-(``run_iteration``).  Scalars of the state are Python numbers, so each
-iteration synchronises with the device a few times; capturing the loop in
-a CUDA graph is later work.  Lambda, rho, the PI sum and the path length
-are rounded to the solve's precision at each operation
-(``params.scalar_type``), as the JAX package's 0-dim arrays of
-``params.dtype`` are.  The rcond estimate of the last step stays on the
-device until the solve ends.  With ``params.collect_path`` the accepted
-iterates go into a ring of ``path_capacity`` columns on the solver's
-device, with model times ``t += 1/lambda``.
+As in the JAX package, the loop state is a small tree of tensors on the
+solver's device (``LoopState``): the iterate, and lambda, rho, the PI sum,
+the path length and the rcond estimate as 0-dim tensors of
+``params.dtype``, the counts and the status as 0-dim int64 tensors.  One
+iteration (``SolveLoop.body``) is the JAX body: the terminal tests in the
+reference's priority (``check_terminate``), then one step with its penalty
+update and veto (``run_iteration``), every decision a ``torch.where``; a
+terminal state passes through unchanged.  The body reads nothing on the
+host.
 
-The loop is cut into chunks of ``params.jit_chunk`` iterations, where the
-JAX package returns to the host: the time limit is checked there, and a
-``checkpoint.CheckpointManager`` writes its snapshot.  ``params.display``
-logs one row per iteration (``display.solver_display``), at the cost of one
-more host read when a row is shown.
+``SolveLoop.run_fused`` runs the body in chunks of ``params.jit_chunk``
+and reads the host once per chunk (``util.HOST_READS["chunk"]``): the
+status, the counts and the final residuals in one packed vector, the
+finalizer fused into the read as in the JAX package's ``run_fused``.  The
+time limit is checked there, and a ``checkpoint.CheckpointManager`` writes
+its snapshot.  On the card a chunk replays the body as a CUDA graph
+(``util.ChunkGraph``), captured once per solver: the counterpart of the
+JAX package's ``lax.while_loop``.  On the CPU, or for a configuration in
+``EAGER_ON_CARD``, the same body runs eagerly, checking the status before
+each iteration: on the CPU that is no device read, on the card one
+(``HOST_READS["eager"]``).  ``graph_route`` decides before the solve.
+
+Lambda, rho, the PI sum and the path length round to the solve's
+precision at each operation, as the JAX package's 0-dim arrays of
+``params.dtype`` do.  With ``params.collect_path`` the accepted iterates
+go into a ring of ``path_capacity`` columns on the solver's device, with
+model times ``t += 1/lambda``.  ``params.display`` logs one row per
+iteration (``display.solver_display``) at one host read per row shown.
 """
 
 import os
@@ -45,8 +54,9 @@ from .iterate import (
     stat_res,
     total_res,
 )
+from .linalg import LinearSolverType
 from .log import logger
-from .params import Params, PenaltyUpdate
+from .params import Params, PenaltyUpdate, StepControlType
 from .penalty import penalty_strategy
 from .problem import Problem
 from .result import SolverResult
@@ -54,27 +64,76 @@ from .status import RUNNING, SolverStatus
 from .step.control import compute_step, make_control_cfg, make_controller
 from .timer import Timer
 from .transform import Transformation
+from .util import HOST_READS, ChunkGraph, _capture, add_device_launches, device_launches, select
 
 
 class LoopState(NamedTuple):
     it: Iterate
-    lamb: float
-    rho: float
-    error_sum: float
+    lamb: Any  # 0-dim tensors of params.dtype
+    rho: Any
+    error_sum: Any
     pstate: Any
-    iteration: int
-    accepted_steps: int
-    num_penalty_changes: int
-    path_dist: float
-    status: int
-    counters: Counters
+    iteration: Any  # 0-dim int64 tensors
+    accepted_steps: Any
+    num_penalty_changes: Any
+    path_dist: Any  # 0-dim, params.dtype
+    status: Any  # 0-dim int64, a SolverStatus value
+    counters: Counters  # 0-dim int64 tensors
     # () or, under params.validate_input, (flag, first_x, first_y, cand_x,
     # cand_y): whether a candidate was rejected for non-finite values, and
     # the first such, kept for the eval diagnosis
     eval_fail: tuple
-    rcond: Any = float("nan")  # estimate of the most recent step
-    # () or (buffer (cap, n+m), times (cap,), length): params.collect_path
+    rcond: Any  # 0-dim, params.dtype: the estimate of the most recent step
+    # () or (buffer (cap, n+m), times (cap,), length 0-dim int64):
+    # params.collect_path
     path: tuple = ()
+
+
+EAGER_ON_CARD = (
+    (lambda p, cb, prob: p.display, "params.display: a display row reads the host in each iteration"),
+    (lambda p, cb, prob: cb is not None and not cb.empty(CallbackType.ComputedStep),
+     "a ComputedStep callback runs on the host in each iteration"),
+    (lambda p, cb, prob: getattr(prob, "evaluates_on_host", False),
+     "the problem evaluates on the host (evaluates_on_host: CUTEst's callbacks, --debug_nans's checks)"),
+    (lambda p, cb, prob: p.step_control_type == StepControlType.BoxReduced,
+     "BoxReduced: the box solver reads the host once per inner iteration"),
+    (lambda p, cb, prob: p.step_control_type == StepControlType.Optimizing,
+     "Optimizing: the interior point reads the host once per inner iteration"),
+    (lambda p, cb, prob: p.linear_solver_type == LinearSolverType.MINRES,
+     "MINRES: its iterations read the host every minres.CHECK_EVERY steps"),
+    (lambda p, cb, prob: p.linear_solver_type == LinearSolverType.GMRES,
+     "GMRES: its restarts are CUDA graphs of their own, read once per restart"),
+)
+"""The configurations that keep the eager loop on the card, each with the
+host read that stops its iteration from being captured (the JAX package
+runs display rows and callbacks through ``jax.debug.callback``, and its
+inner loops as ``lax.while_loop``).  A problem that reads the host by
+design declares it with a true ``evaluates_on_host`` attribute; any other
+problem whose functions read the host makes the capture raise."""
+
+
+def graph_route(params: Params, callbacks=None, problem=None):
+    """Why the loop of this configuration runs eagerly on the card, or
+    ``None`` when it runs as a CUDA graph there."""
+    for applies, reason in EAGER_ON_CARD:
+        if applies(params, callbacks, problem):
+            return reason
+    return None
+
+
+def _diagnose(fns, x, y):
+    """The problem function that cannot be captured as a CUDA graph at
+    ``(x, y)`` (one that reads the host), or None."""
+    checks = [("objective", lambda x: fns.obj(x)), ("objective gradient", lambda x: fns.obj_grad(x))]
+    if fns.num_cons > 0:
+        checks += [("constraints", lambda x: fns.cons(x)), ("constraint Jacobian", lambda x: fns.cons_jac(x))]
+    checks.append(("Lagrangian Hessian", lambda x: fns.lag_hess(x, y)))
+    for name, evaluate in checks:
+        try:
+            _capture(evaluate, (x,))
+        except RuntimeError:
+            return name
+    return None
 
 
 class SolveLoop:
@@ -85,6 +144,7 @@ class SolveLoop:
         self.params = params
         self.fns = transform.fns
         self.callbacks = callbacks
+        self.device = device
 
         problem = transform.trans_problem
         self.n = problem.num_vars
@@ -92,6 +152,7 @@ class SolveLoop:
         self.lb = torch.as_tensor(problem.var_lb, dtype=params.dtype, device=device)
         self.ub = torch.as_tensor(problem.var_ub, dtype=params.dtype, device=device)
 
+        self.display = solver_display(self.m, params) if params.display else None
         self.cfg = make_control_cfg(self.fns, params, self.lb, self.ub)
         self.controller = make_controller(self.cfg)
         self.penalty_initial, self.penalty_update = penalty_strategy(params, self.m, self.fns, device)
@@ -100,39 +161,44 @@ class SolveLoop:
             self.iteration_limit = int(params.iteration_limit)
         else:
             self.iteration_limit = int(params.iteration_limit_default)
-        self.display = solver_display(self.m, params) if params.display else None
+        self.graph = ChunkGraph(self.body, lambda s, fns=self.fns: _diagnose(fns, s.it.x, s.it.y))
+
+    def _scalar(self, value, dtype=None):
+        return torch.tensor(value, dtype=self.params.dtype if dtype is None else dtype, device=self.device)
 
     def init_state(self, x, y) -> LoopState:
         params = self.params
-        f = params.scalar_type
         rho0, pstate0 = self.penalty_initial()
         path = ()
         if params.collect_path:
             cap = params.path_capacity
             buf = torch.zeros((cap, self.n + self.m), dtype=x.dtype, device=x.device)
             buf[0] = torch.cat([x, y])
-            path = (buf, torch.zeros(cap, dtype=x.dtype, device=x.device), 1)
+            path = (buf, torch.zeros(cap, dtype=x.dtype, device=x.device), self._scalar(1, torch.int64))
         eval_fail = ()
         if params.validate_input:
             zx, zy = torch.zeros_like(x), torch.zeros_like(y)
-            eval_fail = (False, zx, zy, zx, zy)
+            eval_fail = (self._scalar(False, torch.bool), zx, zy, zx, zy)
+        zero = self._scalar(0, torch.int64)
+        counters = Counters.zero(self.device).add(**iterate_eval_counts(self.m))
         return LoopState(
             it=evaluate_iterate(self.fns, x, y),
-            lamb=float(f(params.lamb_init)),
-            rho=float(f(rho0)),
-            error_sum=0.0,
+            lamb=self._scalar(params.lamb_init),
+            rho=self._scalar(rho0),
+            error_sum=self._scalar(0.0),
             pstate=pstate0,
-            iteration=0,
-            accepted_steps=0,
-            num_penalty_changes=0,
-            path_dist=0.0,
-            status=RUNNING,
-            counters=Counters.zero().add(**iterate_eval_counts(self.m)),
+            iteration=zero,
+            accepted_steps=zero,
+            num_penalty_changes=zero,
+            path_dist=self._scalar(0.0),
+            status=self._scalar(RUNNING, torch.int64),
+            counters=counters,
             eval_fail=eval_fail,
+            rcond=self._scalar(float("nan")),
             path=path,
         )
 
-    def check_terminate(self, state: LoopState) -> int:
+    def check_terminate(self, state: LoopState):
         """Termination in the reference's priority (``solver.py:180-205``):
         a later test overrides an earlier one."""
         params = self.params
@@ -144,21 +210,17 @@ class SolveLoop:
             it, lb, ub, params.active_tol, params.opt_tol, params.local_infeas_tol, self.fns
         )
         optimal = total_res(it, lb, ub, params.active_tol, self.fns) <= params.opt_tol
-        unbounded, infeas, optimal = torch.stack([unbounded, infeas, optimal]).tolist()
-
-        status = RUNNING
-        if unbounded:
-            status = int(SolverStatus.Unbounded)
-        if infeas:
-            status = int(SolverStatus.LocallyInfeasible)
-        if optimal:
-            status = int(SolverStatus.Optimal)
-        if state.iteration >= self.iteration_limit:
-            status = int(SolverStatus.IterationLimit)
-        return status
+        status = torch.full_like(state.status, RUNNING)
+        status = torch.where(unbounded, int(SolverStatus.Unbounded), status)
+        status = torch.where(infeas, int(SolverStatus.LocallyInfeasible), status)
+        status = torch.where(optimal, int(SolverStatus.Optimal), status)
+        return torch.where(
+            state.iteration >= self.iteration_limit, int(SolverStatus.IterationLimit), status
+        )
 
     def run_iteration(self, state: LoopState) -> LoopState:
         """One outer iteration (reference ``solver.py:305-380``)."""
+        params = self.params
         out = compute_step(
             self.cfg, self.controller, state.it, state.lamb, state.rho,
             state.error_sum, state.counters,
@@ -169,67 +231,77 @@ class SolveLoop:
         # the penalty update runs on every candidate, applies only to
         # accepted steps and can veto them (reference solver.py:357-369)
         pres = self.penalty_update(state.it, next_it, state.rho, state.pstate)
-        accept = ctrl.accepted and pres.accept
-        pstate_n = pres.state if ctrl.accepted else state.pstate
-        rho_n = pres.rho if accept else state.rho
-
-        f = self.params.scalar_type
-        path_dist = state.path_dist
-        if accept:
-            primal, dual = torch.stack(
-                [torch.linalg.vector_norm(next_it.x - state.it.x),
-                 torch.linalg.vector_norm(next_it.y - state.it.y)]
-            ).tolist()
-            path_dist = float(f(path_dist) + (f(primal) + f(dual)))
+        accept = ctrl.accepted & pres.accept
+        rho_n = torch.where(accept, pres.rho, state.rho)
+        step_norm = torch.linalg.vector_norm(next_it.x - state.it.x) + torch.linalg.vector_norm(
+            next_it.y - state.it.y
+        )
 
         eval_fail = state.eval_fail
-        if eval_fail and not out.eval_ok and not eval_fail[0]:
-            eval_fail = (True, out.first_x, out.first_y, out.cand_x, out.cand_y)
+        if eval_fail:
+            flag, first_x, first_y, cand_x, cand_y = eval_fail
+            # the first non-finite candidate (a broken factorization or a
+            # failed evaluation; the diagnosis after the solve tells which)
+            new_bad = ~out.eval_ok & ~flag
+            eval_fail = (
+                flag | ~out.eval_ok,
+                torch.where(new_bad, out.first_x, first_x),
+                torch.where(new_bad, out.first_y, first_y),
+                torch.where(new_bad, out.cand_x, cand_x),
+                torch.where(new_bad, out.cand_y, cand_y),
+            )
 
         if self.callbacks is not None and not self.callbacks.empty(CallbackType.ComputedStep):
             self.callbacks(
                 CallbackType.ComputedStep,
                 (state.it.x, state.it.y),
                 (next_it.x, next_it.y),
-                accept,
+                bool(accept),
             )
 
         path = state.path
-        if path and accept and path[2] < self.params.path_capacity:
+        if path:
             buf, times, length = path
-            buf[length] = torch.cat([next_it.x, next_it.y])
-            times[length] = times[length - 1] + 1.0 / ctrl.lamb
-            path = (buf, times, length + 1)
+            cap = params.path_capacity
+            idx = torch.clamp(length, max=cap - 1).reshape(1)
+            write = accept & (length < cap)
+            row = torch.where(write, torch.cat([next_it.x, next_it.y]), buf.index_select(0, idx)[0])
+            t_new = times.index_select(0, idx - 1)[0] + 1.0 / ctrl.lamb
+            time_n = torch.where(write, t_new, times.index_select(0, idx)[0])
+            path = (buf.index_copy(0, idx, row[None]), times.index_copy(0, idx, time_n.reshape(1)),
+                    length + write)
 
         # lambda blow-up (the reference raises, solver.py:323-326)
-        status = int(SolverStatus.LambdaLimit) if f(ctrl.lamb) >= f(self.params.lamb_max) else RUNNING
+        status = torch.where(ctrl.lamb >= params.lamb_max, int(SolverStatus.LambdaLimit), RUNNING)
+        rcond = ctrl.rcond if torch.is_tensor(ctrl.rcond) else torch.full_like(state.rcond, ctrl.rcond)
         state_n = LoopState(
-            it=next_it if accept else state.it,
+            it=select(accept, next_it, state.it),
             lamb=ctrl.lamb,
             rho=rho_n,
             error_sum=ctrl.error_sum,
-            pstate=pstate_n,
+            pstate=select(ctrl.accepted, pres.state, state.pstate),
             iteration=state.iteration + 1,
-            accepted_steps=state.accepted_steps + int(accept),
-            num_penalty_changes=state.num_penalty_changes + int(accept and rho_n != state.rho),
-            path_dist=path_dist,
+            accepted_steps=state.accepted_steps + accept,
+            num_penalty_changes=state.num_penalty_changes + (accept & (rho_n != state.rho)),
+            path_dist=state.path_dist + torch.where(accept, step_norm, 0.0),
             status=status,
             counters=ctrl.counters,
             eval_fail=eval_fail,
-            rcond=ctrl.rcond,
+            rcond=rcond,
             path=path,
         )
         if self.display is not None and self.display.should_display():
             self._emit_row(state, state_n, ctrl, accept)
         return state_n
 
-    def _emit_row(self, state: LoopState, state_n: LoopState, ctrl, accept: bool) -> None:
+    def _emit_row(self, state: LoopState, state_n: LoopState, ctrl, accept) -> None:
         """One display row (reference ``solver.py:288-343``): the values of
         the iterate the step started from, the step to the candidate, and
         the new lambda and rho; one host read."""
         params = self.params
         it, cand = state.it, ctrl.iterate
-        names = ["aug_lag", "obj", "cons_viol", "stat_res", "active", "obj_nonlin", "|dx|", "|dy|"]
+        names = ["aug_lag", "obj", "cons_viol", "stat_res", "active", "obj_nonlin", "|dx|", "|dy|",
+                 "iter", "lamb", "rho", "accept"]
         values = [
             aug_lag(it, state.rho),
             it.obj,
@@ -239,35 +311,146 @@ class SolveLoop:
             obj_nonlin(it, cand),
             torch.linalg.vector_norm(cand.x - it.x),
             torch.linalg.vector_norm(cand.y - it.y),
+            state.iteration + 1,
+            state_n.lamb,
+            state_n.rho,
+            accept,
         ]
         if params.report_rcond:
             names.append("rcond")
             values.append(ctrl.rcond)
         values = [torch.as_tensor(v, dtype=torch.float64, device=it.x.device) for v in values]
         row = dict(zip(names, torch.stack(values).tolist()))
-        row.update(iter=state.iteration + 1, active=int(row["active"]), lamb=state_n.lamb, rho=state_n.rho, accept=accept)
+        row.update(iter=int(row["iter"]), active=int(row["active"]), accept=bool(row["accept"]))
         self.display.row(row)
 
-    def run(self, state: LoopState, timer: Timer, ckpt=None) -> LoopState:
-        """Iterate until a terminal status.  Every ``jit_chunk`` iterations
-        from the state given, where the JAX package returns to the host,
-        ``ckpt`` (a ``checkpoint.CheckpointManager``) may write a snapshot
-        and the time limit is checked."""
-        chunk = self.params.jit_chunk
-        chunk_end = state.iteration + chunk
-        while True:
-            status = self.check_terminate(state)
-            if status != RUNNING:
-                return state._replace(status=status)
+    def _tested(self, state: LoopState) -> LoopState:
+        """``state`` with the terminal tests' status, unless it already has
+        a terminal one."""
+        status = torch.where(state.status == RUNNING, self.check_terminate(state), state.status)
+        return state._replace(status=status)
+
+    def body(self, state: LoopState) -> LoopState:
+        """One pass of the JAX package's ``lax.while_loop`` body: the
+        terminal tests, then one iteration unless they end the solve; a
+        state that is already terminal comes back unchanged, bit for bit.
+        No host read: the iteration is computed either way and a
+        ``torch.where`` keeps the state that applies."""
+        tested = self._tested(state)
+        return select(tested.status == RUNNING, self.run_iteration(tested), tested)
+
+    def eager_chunk(self, state: LoopState, k: int) -> LoopState:
+        """Up to ``k`` bodies run eagerly: the terminal tests, then the
+        iteration only when they leave the solve running (so a host
+        callback or display row sees each iteration once).  On the CPU the
+        status is in host memory; on the card each test is a host read
+        (``HOST_READS["eager"]``).  The states are ``body``'s, bit for bit."""
+        for _ in range(k):
+            state = self._tested(state)
+            if state.status.device.type != "cpu":
+                HOST_READS["eager"] += 1
+            if int(state.status) != RUNNING:
+                break
             state = self.run_iteration(state)
-            if state.status != RUNNING:
-                return state
-            if state.iteration >= chunk_end:
-                chunk_end += chunk
-                if ckpt is not None:
-                    ckpt.maybe_save(state)
-                if timer.reached_time_limit():
-                    return state._replace(status=int(SolverStatus.TimeLimit))
+        return state
+
+    def graphed_chunk(self, state: LoopState, k: int) -> LoopState:
+        """``k`` bodies replayed as the captured CUDA graph, a terminal
+        state unchanged by them; no host read."""
+        return self.graph.run(state, k)
+
+    def chunk_route(self):
+        """The chunk runner of this solve, decided from ``params`` and the
+        callbacks and the problem before it starts: the graph on the card
+        unless the configuration is in ``EAGER_ON_CARD``."""
+        route = graph_route(self.params, self.callbacks, self.transform.orig_problem)
+        if self.device.type == "cuda" and route is None:
+            return self.graphed_chunk
+        return self.eager_chunk
+
+    def _finalize(self, state: LoopState, x0, y0):
+        """What the solve returns, fused into the chunk's one read
+        (``pygradflow_tpu/solver.py:361-411``): the solution triple as
+        tensors and the result's scalars packed into one f64 vector whose
+        last entry is the status."""
+        params = self.params
+        it = state.it
+        d = bounds_dual(it, self.lb, self.ub, params.active_tol, self.fns)
+        direct_dist = torch.sqrt(torch.sum((it.x - x0) ** 2) + torch.sum((it.y - y0) ** 2))
+        eval_flag = state.eval_fail[0] if state.eval_fail else torch.zeros((), dtype=torch.bool, device=self.device)
+        path_len = state.path[2] if state.path else state.iteration
+        values = (
+            direct_dist,
+            stat_res(it, self.lb, self.ub, params.active_tol, self.fns),
+            cons_violation(it),
+            it.obj,
+            state.rho,
+            state.path_dist,
+            state.lamb,
+            state.iteration,
+            state.accepted_steps,
+            state.num_penalty_changes,
+            *state.counters,
+            state.rcond,
+            eval_flag,
+            path_len,
+            state.status,
+        )
+        scalars = torch.stack([v.to(torch.float64) for v in values])
+        return self.transform.restore_sol(it.x, it.y, d), scalars
+
+    def run_fused(self, x, y, timer: Timer, state=None, ckpt=None):
+        """Drive a solve from ``(x, y)``, or from ``state`` (a resumed
+        snapshot), in chunks of ``params.jit_chunk`` bodies through
+        ``chunk_route()``, with one host read per chunk: the packed scalars
+        of ``_finalize``, the status last.  At each chunk boundary ``ckpt``
+        may write a snapshot and the time limit is checked.  Returns
+        ``(state, sol, scalars)``: the final state (tensors that a later
+        solve does not overwrite), the solution triple, and the scalars as
+        a list of floats."""
+        run_chunk = self.chunk_route()
+        if state is None:
+            state = self.init_state(x, y)
+        k = self.params.jit_chunk
+        graphed = run_chunk == self.graphed_chunk
+        while True:
+            state = run_chunk(state, k)
+            sol, scalars = self._finalize(state, x, y)
+            if graphed:  # with the kernel launches that the chunk's bodies counted
+                launches = device_launches(state.status.device)
+                scalars = torch.cat([scalars, launches.to(torch.float64)])
+            HOST_READS["chunk"] += 1
+            scalars = scalars.tolist()
+            if graphed:
+                n_scalars = len(scalars) - launches.numel()
+                add_device_launches(state.status.device, scalars[n_scalars:])
+                del scalars[n_scalars:]
+            if int(scalars[-1]) != RUNNING:
+                break
+            if ckpt is not None:
+                ckpt.maybe_save(state)
+            if timer.reached_time_limit():
+                scalars[-1] = int(SolverStatus.TimeLimit)
+                state = state._replace(status=torch.full_like(state.status, int(SolverStatus.TimeLimit)))
+                break
+        if graphed:  # the graph's buffers: the next solve overwrites them
+            state, sol = _clone_tree(state), _clone_tree(sol)
+        return state, sol, scalars
+
+
+    def run(self, state: LoopState, timer: Timer, ckpt=None) -> LoopState:
+        """Drive chunks from ``state`` until a terminal status or the time
+        limit, with ``ckpt`` writing its snapshot at chunk boundaries (the
+        JAX package's ``SolveLoop.run``); returns the final state."""
+        return self.run_fused(state.it.x, state.it.y, timer, state=state, ckpt=ckpt)[0]
+
+
+def _clone_tree(value):
+    if torch.is_tensor(value):
+        return value.clone()
+    if isinstance(value, tuple):
+        return type(value)(*map(_clone_tree, value)) if hasattr(value, "_fields") else tuple(map(_clone_tree, value))
+    return value
 
 
 def _profiled(fn, trace_dir: str, device: torch.device):
@@ -365,27 +548,31 @@ class Solver:
 
         timer = Timer(params.time_limit)
 
+        state0 = None
         ckpt = None
         if checkpoint_path is not None:
             from .checkpoint import CheckpointManager
 
             ckpt = CheckpointManager(checkpoint_path)
+            if resume and ckpt.exists():
+                state0 = ckpt.restore(loop.init_state(x, y))
 
         def drive():
-            state0 = loop.init_state(x, y)
-            if ckpt is not None and resume and ckpt.exists():
-                state0 = ckpt.restore(state0)
-            return loop.run(state0, timer, ckpt)
+            return loop.run_fused(x, y, timer, state=state0, ckpt=ckpt)
 
         if params.profile_dir:
-            state = _profiled(drive, params.profile_dir, self.device)
+            state, (x_r, y_r, d_r), scalars = _profiled(drive, params.profile_dir, self.device)
         else:
-            state = drive()
+            state, (x_r, y_r, d_r), scalars = drive()
         total_time = timer.elapsed()
-        status = SolverStatus(state.status)
+        (direct_dist, final_stat_res, final_cons_violation, final_obj, rho, path_dist, lamb,
+         iterations, accepted_steps, penalty_changes, *counts) = scalars[:15]
+        final_rcond, eval_flag, path_len, status = scalars[15:]
+        status = SolverStatus(int(status))
+        iterations, accepted_steps, penalty_changes = int(iterations), int(accepted_steps), int(penalty_changes)
 
         failed_component, fail_x = None, None
-        if state.eval_fail and state.eval_fail[0]:
+        if eval_flag:
             # replay the user callbacks at the first rejected candidate,
             # then at the final one, and name the one that failed
             first_x, first_y, cand_x, cand_y = state.eval_fail[1:]
@@ -408,31 +595,20 @@ class Solver:
                     fail_x,
                 )
             raise Exception(
-                f"Inverse step size {state.lamb} exceeded maximum "
+                f"Inverse step size {lamb} exceeded maximum "
                 f"{params.lamb_max} (incorrect derivatives?)"
             )
 
-        it = state.it
-        d = bounds_dual(it, loop.lb, loop.ub, params.active_tol, loop.fns)
-        direct_dist, final_stat_res, final_cons_violation, final_obj = torch.stack(
-            [
-                torch.sqrt(torch.sum((it.x - x) ** 2) + torch.sum((it.y - y) ** 2)),
-                stat_res(it, loop.lb, loop.ub, params.active_tol, loop.fns),
-                cons_violation(it),
-                it.obj,
-            ]
-        ).tolist()
-        x_r, y_r, d_r = self.transform.restore_sol(it.x, it.y, d)
-        dist_factor = state.path_dist / direct_dist if direct_dist != 0.0 else 1.0
-        num_evals = state.counters.as_dict()
+        dist_factor = path_dist / direct_dist if direct_dist != 0.0 else 1.0
+        num_evals = Counters(*(int(c) for c in counts)).as_dict()
 
         self._print_result(
             total_time=total_time,
             status=status,
-            iterations=state.iteration,
-            accepted_steps=state.accepted_steps,
-            penalty_changes=state.num_penalty_changes,
-            rho=state.rho,
+            iterations=iterations,
+            accepted_steps=accepted_steps,
+            penalty_changes=penalty_changes,
+            rho=rho,
             dist_factor=dist_factor,
             final_obj=final_obj,
             final_stat_res=final_stat_res,
@@ -446,26 +622,27 @@ class Solver:
             y_r,
             d_r,
             status,
-            iterations=state.iteration,
-            num_accepted_steps=state.accepted_steps,
+            iterations=iterations,
+            num_accepted_steps=accepted_steps,
             total_time=total_time,
             dist_factor=dist_factor,
             final_scaled_obj=final_obj,
             final_stat_res=final_stat_res,
             final_cons_violation=final_cons_violation,
-            num_penalty_changes=state.num_penalty_changes,
+            num_penalty_changes=penalty_changes,
             num_evals=num_evals,
-            final_rcond=float(state.rcond),
+            final_rcond=final_rcond,
         )
         if params.collect_path:
-            buf, times, length = state.path
+            buf, times, _ = state.path
+            length = int(path_len)
             # the initial point and one column per accepted step, unless the
             # ring stopped at its capacity (the reference path is unbounded)
-            if state.accepted_steps + 1 > length:
+            if accepted_steps + 1 > length:
                 logger.warning(
                     "Trajectory truncated: %d accepted steps exceed path_capacity=%d; "
                     "raise Params.path_capacity to record the full path",
-                    state.accepted_steps,
+                    accepted_steps,
                     params.path_capacity,
                 )
             result._set_path(buf[:length].T, times[:length])

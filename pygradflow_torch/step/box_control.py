@@ -13,7 +13,9 @@ implicit-function residual is at most 1e-6, and rejected with lambda
 doubled otherwise.  A failed box solve poisons x with NaN, so
 ``compute_step`` rejects the step; an unbounded subproblem's x is used as it
 is.  No KKT matrix is factored: rcond stays NaN.  One body serves one
-instance (``lamb`` a float) and a lane stack (``lamb`` a (B,) tensor).
+instance (``lamb`` a 0-dim tensor) and a lane stack (``lamb`` a (B,)
+tensor).  The box solver's iterations end when no lane still iterates,
+one host read each, so this controller keeps the eager loop.
 """
 
 import torch
@@ -28,7 +30,7 @@ from .control import ControlCfg, ControlResult
 ACCEPT_TOL = 1e-6
 
 
-def make_box_reduced(cfg: ControlCfg, lanes_form: bool = False):
+def make_box_reduced(cfg: ControlCfg):
     params = cfg.params
     fns = cfg.fns
     lb, ub = cfg.lb, cfg.ub
@@ -53,14 +55,11 @@ def make_box_reduced(cfg: ControlCfg, lanes_form: bool = False):
         return H + lanes(lamb, 2) * eye + lanes(cons_factor, 2) * (jac.mT @ jac)
 
     def step(orig: Iterate, lamb, rho, error_sum, counters: Counters) -> ControlResult:
-        # one instance: lambda and rho as 0-dim CPU tensors of the solve's
-        # dtype, so that 1/lambda + rho rounds as the JAX package's does
-        lam, rh = (lamb, rho) if lanes_form else (torch.tensor(v, dtype=lb.dtype) for v in (lamb, rho))
         result = solve_box_constrained(
             orig.x,
-            lambda x: objective(orig, x, lam, rh),
-            lambda x: gradient(orig, x, lam, rh),
-            lambda x: hessian(orig, x, lam, rh),
+            lambda x: objective(orig, x, lamb, rho),
+            lambda x: gradient(orig, x, lamb, rho),
+            lambda x: hessian(orig, x, lamb, rho),
             lb,
             ub,
             obj_lower=params.obj_lower_limit,
@@ -75,11 +74,7 @@ def make_box_reduced(cfg: ControlCfg, lanes_form: bool = False):
 
         func = impl.make_step_func(orig, lamb, lb, ub, scaled=False)
         accepted = impl.value_norm(func, next_it, rho) <= ACCEPT_TOL
-        if lanes_form:
-            lamb_n = torch.where(accepted, 0.5 * lamb, 2.0 * lamb)
-        else:
-            accepted = bool(accepted)
-            lamb_n = 0.5 * lamb if accepted else 2.0 * lamb
+        lamb_n = torch.where(accepted, 0.5 * lamb, 2.0 * lamb)
         active = impl.compute_active_set(func, next_it, rho)
         return ControlResult(
             next_it, lamb_n, accepted, error_sum, active, counters, float("nan"), (next_it.x, next_it.y)

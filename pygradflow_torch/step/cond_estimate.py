@@ -28,8 +28,20 @@ def required_its(size: int, min_prob: float = 0.99, factor: float = 10.0) -> int
     return -2 * math.ceil(math.log(f, factor))
 
 
+_PROBES = {}
+
+
 def probe_vectors(size: int, dtype, device):
-    """The two unit probe vectors (x, y) of length ``size``."""
+    """The two unit probe vectors (x, y) of length ``size``, made once per
+    size, dtype and device: a copy from host memory inside the solve loop's
+    iteration would stop it from being captured as a CUDA graph."""
+    key = (size, dtype, torch.device(device))
+    if key not in _PROBES:
+        _PROBES[key] = _make_probes(size, dtype, device)
+    return _PROBES[key]
+
+
+def _make_probes(size: int, dtype, device):
     gen = torch.Generator().manual_seed(SEED)
     x = torch.randn(size, generator=gen, dtype=torch.float64)
     y = torch.randn(size, generator=gen, dtype=torch.float64)

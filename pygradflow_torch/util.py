@@ -4,17 +4,89 @@ Every helper acts on the last axis, so it serves one instance (vectors
 (n,)) and a lane stack (B, n) alike.
 """
 
+import contextlib
 import gc
+import threading
+import time
+import weakref
 from collections import Counter
 
 import torch
 
 HOST_READS = Counter()
-"""Host reads of the inner loops that stop when no lane still runs (the
-box solver, the interior point, MINRES and GMRES, and the continuous
-engine's loops: ``newton``, ``segment``, ``bisect``, ``device_loop`` and
-``flat``, and ``branch``, the reads that skip a branch no lane takes), one
-count per read, keyed by loop."""
+"""Host reads, one count per read, keyed by loop: ``chunk``, the solve
+loop's one read per chunk of ``params.jit_chunk`` iterations (single and
+lockstep), and ``eager``, the per-iteration reads of the loop run without
+a CUDA graph on the card; the inner loops that stop when no lane still
+runs (the box solver, the interior point, MINRES and GMRES, and the
+continuous engine's loops: ``newton``, ``segment``, ``bisect``,
+``device_loop`` and ``flat``, and ``branch``, the reads that skip a branch
+no lane takes)."""
+
+LAUNCH_COUNTERS = []
+"""The kernel wrappers' launch counts: dicts of ints whose keys are fixed
+when they register (``register_launches``).  A wrapper counts each launch
+where it makes it, through ``count_launch``."""
+
+LAUNCH_SLOTS = 16
+"""Entries of a device's launch counts: room for every key registered, also
+for a wrapper module imported after a first graph was captured."""
+
+_DEVICE_LAUNCHES = {}
+"""Per device: [the launches counted on the device by CUDA graph replays,
+one int64 entry per key of ``LAUNCH_COUNTERS`` in order (``LAUNCH_SLOTS``
+of them), and the part of each already added on the host]."""
+
+
+def register_launches(counter) -> None:
+    """Register a wrapper module's launch counts in ``LAUNCH_COUNTERS``."""
+    if len(_launch_keys()) + len(counter) > LAUNCH_SLOTS:
+        raise RuntimeError(f"more than LAUNCH_SLOTS = {LAUNCH_SLOTS} kernel launch counts")
+    LAUNCH_COUNTERS.append(counter)
+
+
+def _launch_keys():
+    return [(counter, name) for counter in LAUNCH_COUNTERS for name in counter]
+
+
+_LAUNCH_LOCK = threading.Lock()  # the shards of a mesh read in a thread per device
+
+
+def device_launches(device):
+    """The launch counts that CUDA graph replays made on ``device``, one
+    entry per key of ``LAUNCH_COUNTERS`` and zeros after them; made on first
+    use, which must come before a graph that launches a counted kernel is
+    captured."""
+    with _LAUNCH_LOCK:
+        if device not in _DEVICE_LAUNCHES:
+            zeros = torch.zeros(LAUNCH_SLOTS, dtype=torch.int64, device=device)
+            _DEVICE_LAUNCHES[device] = [zeros, [0] * LAUNCH_SLOTS]
+        return _DEVICE_LAUNCHES[device][0]
+
+
+def count_launch(counter, name, device) -> None:
+    """Count one launch of kernel ``name`` in ``counter``.  A launch made
+    while a CUDA graph is captured is counted by an add on the device,
+    captured beside the kernel, so that every replay that runs the launch
+    counts it; ``add_device_launches`` brings those counts to the host."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        if device not in _DEVICE_LAUNCHES:
+            raise RuntimeError(f"{name}: launched in a CUDA graph capture without device_launches({device})")
+        slot = next(i for i, (c, k) in enumerate(_launch_keys()) if c is counter and k == name)
+        _DEVICE_LAUNCHES[device][0][slot].add_(1)
+    else:
+        counter[name] += 1
+
+
+def add_device_launches(device, values) -> None:
+    """Add to ``LAUNCH_COUNTERS`` the launches that graph replays counted on
+    ``device`` since the last call; ``values`` is ``device_launches(device)``
+    read on the host (with a loop's one read per chunk)."""
+    with _LAUNCH_LOCK:
+        seen = _DEVICE_LAUNCHES[device][1]
+        for i, ((counter, name), value) in enumerate(zip(_launch_keys(), values)):
+            counter[name] += int(value) - seen[i]
+            seen[i] = int(value)
 
 
 def any_running(running, loop: str) -> bool:
@@ -24,27 +96,56 @@ def any_running(running, loop: str) -> bool:
     return bool(running.any())
 
 
+@contextlib.contextmanager
+def _capturing(graph, stream, pool):
+    """``torch.cuda.graph(graph)`` on ``stream`` into the memory pool
+    ``pool``, in ``thread_local`` mode and with no garbage collected during
+    the capture: only this thread's CUDA calls can invalidate it (a
+    collection in another thread of the process, a worker pool's result
+    handler say, frees CUDA memory and destroys graphs outside the
+    capture).  A capture that fails leaves no state behind: the current
+    stream is restored and the allocator no longer routes allocations to
+    ``pool``, so the process goes on solving and capturing."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(stream):
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+                    yield
+            except BaseException:
+                _stop_allocating_to(stream.device, pool)
+                raise
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def _stop_allocating_to(device, pool) -> None:
+    """End the allocator's routing to ``pool``, which a capture whose end
+    failed leaves on (``torch.cuda.graph`` ends it only after a successful
+    end of capture)."""
+    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+    if end is None:
+        return
+    try:
+        end(device.index, pool)
+    except RuntimeError:
+        pass  # the capture's own end had stopped it
+
+
 def _capture(fn, inputs):
     """``fn(*inputs)`` captured as a CUDA graph after one warm-up run on a
-    side stream; returns the graph and its output tensors.  No garbage is
-    collected during the capture, and only this thread's CUDA calls can
-    invalidate it: a collection in another thread of the process (a worker
-    pool's result handler, say) frees CUDA memory and destroys graphs
-    outside the capture."""
+    side stream (``_capturing``'s rules); returns the graph and its output
+    tensors."""
     stream = torch.cuda.Stream(device=inputs[0].device)
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         fn(*inputs)  # warm-up: cuBLAS handles and workspaces outside the capture
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outputs = fn(*inputs)
-    finally:
-        if collecting:
-            gc.enable()
+    with _capturing(graph, stream, torch.cuda.graph_pool_handle()):
+        outputs = fn(*inputs)
     return graph, outputs
 
 
@@ -117,6 +218,115 @@ class GraphPair:
         return outputs
 
 
+def _flat(tree):
+    """The tensors of a (Named)tuple and dict tree, in order."""
+    if isinstance(tree, dict):
+        return [t for k in tree for t in _flat(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for leaf in tree for t in _flat(leaf)]
+    return [tree]
+
+
+class GraphCaptureError(RuntimeError):
+    """The solve loop's iteration could not be captured as a CUDA graph:
+    something in it reads the host."""
+
+
+class ChunkGraph:
+    """A loop body ``body(state) -> state`` run on the card as a CUDA graph,
+    the counterpart of the JAX package's ``lax.while_loop`` chunk.
+
+    For each shape of the state (a width tier of a lane stack) the body is
+    captured once (``_capturing``'s rules, after a warm-up on the capture
+    stream) on static state buffers, with its result copied back into them.
+    A chunk copies the state in and replays the graph ``k`` times with no
+    host read; a terminal state passes through a replay unchanged (the
+    body's masked select), so the chunk's result does not depend on ``k``.
+    The replays run whole bodies after the status is terminal, where the
+    JAX package's ``lax.while_loop`` stops: a conditional IF node around
+    the body stopped them on the device, but on a card time-sliced between
+    several processes its launches failed at random with an unspecified
+    launch failure.  Every shape shares one memory pool:
+    nothing allocated during a capture outlives it, so each graph's pool
+    memory is scratch of its own replay.  A failed capture raises
+    :class:`GraphCaptureError`, naming through ``diagnose(state)`` the
+    problem function that reads the host when there is one; there is no
+    eager fallback.
+
+    The state returned is the static buffers, which the next chunk of the
+    same shape goes on from and overwrites.  The kernels launched in the
+    body count their launches on the device (``count_launch``), once per
+    body run."""
+
+    def __init__(self, body, diagnose=None):
+        # a bound method is held weakly: the loop that owns this graph owns
+        # its body, and no cycle keeps the graph's memory past the loop
+        self._body = weakref.WeakMethod(body) if hasattr(body, "__self__") else (lambda: body)
+        self.diagnose = diagnose
+        self._entries = {}
+        self._pool = None
+        self.captures = 0
+        self.capture_seconds = 0.0
+
+    @staticmethod
+    def _key(state):
+        return tuple((tuple(t.shape), t.dtype) for t in _flat(state))
+
+    def _capture(self, state):
+        device = state.status.device
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        device_launches(device)
+        t0 = time.perf_counter()
+        static = tree_map(torch.clone, state)
+        stream = torch.cuda.Stream(device=device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        body = self._body()
+        with torch.cuda.stream(stream):
+            body(static)  # warm-up: handles, workspaces and caches outside the capture
+        torch.cuda.current_stream(device).wait_stream(stream)
+
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with _capturing(graph, stream, self._pool):
+                for dst, src in zip(_flat(static), _flat(body(static))):
+                    if dst is not src:
+                        dst.copy_(src)
+        except RuntimeError as err:
+            name = self.diagnose(state) if self.diagnose is not None else None
+            if name is not None:
+                raise GraphCaptureError(
+                    f"the problem's {name} reads the host (a Python branch on a tensor, "
+                    ".item(), .tolist(), or a copy between host and device memory), so the "
+                    f"solve loop cannot run as a CUDA graph: write it as pure tensor code ({err})"
+                ) from err
+            raise GraphCaptureError(f"capturing the solve loop's iteration failed: {err}") from err
+
+        entry = {"static": static, "graph": graph}
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0
+        return entry
+
+    def entry(self, state):
+        """The captured graph for states of this shape, captured now if new."""
+        key = self._key(state)
+        if key not in self._entries:
+            self._entries[key] = self._capture(state)
+        return self._entries[key]
+
+    def run(self, state, k: int):
+        """``k`` graph replays from ``state``: ``k`` bodies, those after the
+        status is terminal keeping the state bit for bit."""
+        entry = self.entry(state)
+        static = entry["static"]
+        for dst, src in zip(_flat(static), _flat(state)):
+            if dst is not src:
+                dst.copy_(src)
+        for _ in range(k):
+            entry["graph"].replay()
+        return static
+
+
 def lanes(s, k: int):
     """A per-lane scalar ``s`` made to broadcast against ``k`` trailing
     axes: a (B,) tensor becomes (B, 1, ..., 1); a Python number or a 0-dim
@@ -183,14 +393,22 @@ def masked_while(cond, body, carry, every, loop: str, trips=None):
 
 
 def dot(x, y):
-    """Inner product over the last axis."""
+    """Inner product over the last axis.  Of empty vectors (a problem
+    without constraints) it is a zero made by a kernel: the library's
+    product of no entries leaves a node that a CUDA graph's conditional
+    node refuses at instantiation."""
+    if x.shape[-1] == 0:
+        return x.new_zeros(torch.broadcast_shapes(x.shape, y.shape)[:-1])
     if x.ndim == 1:
         return torch.dot(x, y)
     return torch.linalg.vecdot(x, y)
 
 
 def matvec(a, x):
-    """``a @ x`` for a matrix (..., k, n) and a vector (..., n)."""
+    """``a @ x`` for a matrix (..., k, n) and a vector (..., n); zeros made
+    by a kernel when n is 0, as ``dot``."""
+    if a.shape[-1] == 0:
+        return a.new_zeros(torch.broadcast_shapes(a.shape[:-2], x.shape[:-1]) + a.shape[-2:-1])
     if x.ndim == 1:
         return a @ x
     return (a @ x[..., None])[..., 0]

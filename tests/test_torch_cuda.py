@@ -16,9 +16,18 @@ from pygradflow_torch.linalg import ldlt_kernels as lk
 from pygradflow_torch.linalg.ldlt import ldlt_num_neg_eigvals
 from pygradflow_torch.runners.control import PendulumControl
 
+from .test_cutest import fake_pycutest  # noqa: F401 (fixture)
 from .torch_parity import saddle
 
 pytestmark = pytest.mark.cuda
+
+
+def graphed_launches(iterations, jit_chunk=Params().jit_chunk):
+    """A kernel's launches in a graphed solve that launches it once per
+    iteration: one per body replayed (``jit_chunk`` per chunk, the bodies
+    after the terminal one included, their results masked) and one in the
+    capture's warm-up."""
+    return -(-(iterations + 1) // jit_chunk) * jit_chunk + 1
 
 
 @pytest.fixture
@@ -157,7 +166,7 @@ def test_pendulum_on_cuda_matches_cpu(cuda):
     ref = Solver(problem, params, device="cpu").solve(x0)
     before = lk.LAUNCHES["rl"]
     res = Solver(problem, params, device=cuda).solve(torch.tensor(x0, device=cuda))
-    assert lk.LAUNCHES["rl"] - before == res.iterations
+    assert lk.LAUNCHES["rl"] - before == graphed_launches(res.iterations)
     assert (res.status, res.iterations, res.num_accepted_steps) == (
         ref.status, ref.iterations, ref.num_accepted_steps,
     )
@@ -288,8 +297,8 @@ def test_rcond_on_cuda_equals_cpu(cuda, N, key):
     card = Solver(problem, params, device=cuda).solve(torch.tensor(x0, device=cuda))
     assert (card.status, card.iterations, card.num_accepted_steps) == (cpu.status, cpu.iterations, cpu.num_accepted_steps)
     np.testing.assert_allclose(card.final_rcond, cpu.final_rcond, rtol=1e-8)
-    if key is not None:
-        assert lk.LAUNCHES[key] - before[key] == card.iterations
+    if key is not None:  # the graphed loop's, as in test_pendulum_on_cuda_matches_cpu
+        assert lk.LAUNCHES[key] - before[key] == graphed_launches(card.iterations)
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["single", "lanes"])
@@ -432,3 +441,166 @@ def test_checkpoint_resume_on_cuda_is_bitwise(cuda, tmp_path):
     assert on_card.x.device.type == "cuda"
     assert (on_card.iterations, on_card.num_accepted_steps) == (cpu_full.iterations, cpu_full.num_accepted_steps)
     np.testing.assert_allclose(on_card.x.cpu().numpy(), cpu_full.x.numpy(), rtol=0, atol=1e-8)
+
+
+def _eager(solver):
+    """``solver`` with every chunk through its loop's eager route."""
+    loop = solver._loop if hasattr(solver, "_loop") else solver.loop
+    loop.chunk_route = lambda: loop.eager_chunk
+    return solver
+
+
+@pytest.mark.parametrize("case", ["rosenbrock", "hs71", "pendulum"])
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "lanes"])
+def test_graphed_loop_equals_eager_loop(cuda, case, batched):
+    """The solve loop replayed as a CUDA graph gives the eager loop's bits,
+    reads the host once per chunk, and captures nothing on a second solve."""
+    from pygradflow_torch.parallel import BatchedSolver
+    from pygradflow_torch.util import HOST_READS
+
+    from .torch_parity import HS71, Rosenbrock
+
+    if case == "pendulum":
+        problem = PendulumControl(N=16)
+        x0, y0 = problem.x0_trajectory(), None
+        params = Params(linear_solver_type=LinearSolverType.PallasLDLT, validate_input=False, jit_chunk=8)
+    else:
+        problem = Rosenbrock() if case == "rosenbrock" else HS71()
+        x0 = np.array([0.0, 0.0]) if case == "rosenbrock" else np.array([1.0, 5.0, 5.0, 1.0, 0.0])
+        y0 = None if case == "rosenbrock" else np.zeros(2)
+        params = Params(jit_chunk=8)
+    if batched:
+        x0 = x0 + 1e-3 * np.random.default_rng(3).standard_normal((3, x0.shape[0]))
+        y0 = None if y0 is None else np.tile(y0, (3, 1))
+
+    def make():
+        return (BatchedSolver if batched else Solver)(problem, params, device=cuda)
+
+    graphed, eager = make(), _eager(make())
+    HOST_READS.clear()
+    res = graphed.solve(x0, y0)
+    assert set(HOST_READS) == {"chunk"}
+    iters = int(res.iterations.max()) if batched else res.iterations
+    assert HOST_READS["chunk"] <= -(-(iters + 1) // 8) + 1
+    loop = graphed.loop if batched else graphed._loop
+    assert loop.graph.captures == 1
+    again = graphed.solve(x0, y0)
+    assert loop.graph.captures == 1
+    ref = eager.solve(x0, y0)
+    fields = ("x", "y", "d", "status", "iterations", "accepted_steps") if batched else ("x", "y", "d")
+    for r in (res, again):
+        for field in fields:
+            assert torch.equal(getattr(r, field), getattr(ref, field)), field
+        if not batched:
+            assert (r.status, r.iterations, r.num_accepted_steps) == (ref.status, ref.iterations, ref.num_accepted_steps)
+
+
+def test_host_reading_problem_raises_on_the_card(cuda):
+    """A problem whose objective branches on a tensor cannot be captured:
+    the solve raises and names the objective.  The process goes on: HS71
+    solved as a graph before and after the failed capture gives the same
+    bits."""
+    from pygradflow_torch import Problem
+    from pygradflow_torch.util import GraphCaptureError
+
+    from .torch_parity import HS71
+
+    class Branching(Problem):
+        def __init__(self):
+            super().__init__(np.full(2, -np.inf), np.full(2, np.inf))
+
+        def obj(self, x):
+            return torch.dot(x, x) if bool(x[0] > 0) else torch.dot(x, x) + 1.0
+
+    x0, y0 = np.array([1.0, 5.0, 5.0, 1.0, 0.0]), np.zeros(2)
+    before = Solver(HS71(), Params(), device=cuda).solve(x0, y0)
+    with pytest.raises(GraphCaptureError, match="objective"):
+        Solver(Branching(), Params(validate_input=False), device=cuda).solve(np.array([1.0, 1.0]))
+    solver = Solver(HS71(), Params(), device=cuda)
+    after = solver.solve(x0, y0)
+    assert solver._loop.chunk_route() == solver._loop.graphed_chunk and solver._loop.graph.captures == 1
+    assert (after.status, after.iterations, after.num_accepted_steps) == (before.status, before.iterations,
+                                                                         before.num_accepted_steps)
+    for field in ("x", "y", "d"):
+        assert torch.equal(getattr(after, field), getattr(before, field)), field
+
+
+def test_launches_counted_after_a_first_graph_without_kernels(cuda):
+    """In a fresh process whose first graphed solve launches no counted
+    kernel (HS71 on LU, before the wrappers' module is imported), a later
+    graphed PallasLDLT solve still counts the launches of B1' on the device:
+    one per body replayed and one in the capture's warm-up."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import numpy as np, sys
+from pygradflow_torch import LinearSolverType, Params, Solver
+from pygradflow_torch.runners.control import PendulumControl
+from tests.torch_parity import HS71
+Solver(HS71(), Params(), device="cuda").solve(np.array([1.0, 5.0, 5.0, 1.0, 0.0]), np.zeros(2))
+assert "pygradflow_torch.linalg.ldlt_kernels" not in sys.modules
+problem = PendulumControl(N=16)
+params = Params(linear_solver_type=LinearSolverType.PallasLDLT, validate_input=False)
+res = Solver(problem, params, device="cuda").solve(problem.x0_trajectory())
+from pygradflow_torch.linalg import ldlt_kernels as lk
+print(res.status.name, res.iterations, lk.LAUNCHES["rl"])
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    status, iterations, launches = out.stdout.split()[-3:]
+    assert status == "Optimal" and int(launches) == graphed_launches(int(iterations))
+
+
+def test_host_evaluating_problems_take_the_eager_loop(cuda, fake_pycutest):
+    """Problems that evaluate on the host by design (CUTEst's callbacks,
+    ``--debug_nans``'s checks) solve on the card through the eager loop,
+    to the CPU run's counts and, for the checked HS71, to the graphed
+    solve's bits."""
+    from pygradflow_torch.runners.cutest_runner import CUTEstRunner
+    from pygradflow_torch.runners.hs import HS_BY_NAME
+    from pygradflow_torch.runners.hs_runner import HSInstance
+    from pygradflow_torch.util import HOST_READS
+
+    runner = CUTEstRunner()
+    for inst in runner.get_instances(runner.parser().parse_args([])):
+        ours, cpu = inst.solve(Params(), cuda), inst.solve(Params(), "cpu")
+        assert ours.success and ours.x.device.type == "cuda", inst.name
+        assert (ours.iterations, ours.num_accepted_steps) == (cpu.iterations, cpu.num_accepted_steps), inst.name
+        np.testing.assert_allclose(ours.x.cpu().numpy(), cpu.x.numpy(), rtol=0, atol=1e-8)
+
+    hs71 = HSInstance(HS_BY_NAME["hs71"])
+    graphed = hs71.solve(Params(), cuda)
+    HOST_READS.clear()
+    checked = hs71.solve(Params(), cuda, debug_nans=True)
+    assert HOST_READS["eager"] > 0
+    assert (checked.status, checked.iterations) == (graphed.status, graphed.iterations)
+    for field in ("x", "y", "d"):
+        assert torch.equal(getattr(checked, field), getattr(graphed, field)), field
+
+
+def test_graphed_solves_in_concurrent_processes(cuda):
+    """Four processes solve the parity harness's HS and option cases on one
+    card at once, each through the graphed loop, the card time-sliced
+    between them: every process holds every case to
+    the JAX rows and exits 0.  (A conditional IF node around the captured
+    body failed here at random with an unspecified launch failure.)"""
+    import os
+    import subprocess
+    import sys
+
+    from tools import torch_parity_cases as pc
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cases = [c.name for c in pc.cases() if c.kind in ("hs", "option")]
+    cmd = [sys.executable, os.path.join(root, "tools", "torch_parity_check.py"), "--side", "torch", "--device",
+           "cuda", "--max-iterations", "200", "--cases", *cases]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+        assert " 0 failed " in out.strip().splitlines()[-1], out[-3000:]

@@ -50,9 +50,6 @@ ALLOWED = {
     # linalg/ldlt_kernels.py (csrc/ldlt.cu)
     "pygradflow_tpu.linalg.pallas_ldlt": "Pallas module, ported as linalg/ldlt_kernels.py",
     "pygradflow_tpu.linalg.pallas_ldlt_hbm": "Pallas module, ported as linalg/ldlt_kernels.py",
-    # the jit structure of the JAX loop: the port's loop is eager
-    "pygradflow_tpu.solver:SolveLoop.body": "lax.while_loop body",
-    "pygradflow_tpu.solver:SolveLoop.run_fused": "one jitted while_loop",
 }
 
 RENAMED = {
