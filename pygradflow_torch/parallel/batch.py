@@ -58,7 +58,7 @@ from ..status import RUNNING, SolverStatus
 from ..step.control import compute_step, make_control_cfg, make_controller
 from ..timer import Timer
 from ..transform import Transformation
-from ..util import HOST_READS, ChunkGraph, add_device_launches, device_launches, select, tree_map
+from ..util import HOST_READS, ChunkGraph, add_device_launches, begin_call, device_launches, select, span, tree_map
 
 
 class ParametricProblem(Problem):
@@ -277,7 +277,8 @@ class LaneLoop:
     def run_chunk(self, state: LaneState, chunk: int) -> LaneState:
         """At most ``chunk`` iterations while a lane runs, through the
         route of ``chunk_route``; no host read."""
-        return self.chunk_route()(state, chunk)
+        with span("pgf.chunk", width=state.status.shape[0], bodies=chunk):
+            return self.chunk_route()(state, chunk)
 
     def read(self, state: LaneState):
         """The status vector on the host (numpy): the one host read per
@@ -285,10 +286,13 @@ class LaneLoop:
         chunk's bodies counted on the device (``util.add_device_launches``)."""
         HOST_READS["chunk"] += 1
         if self.chunk_route() != self.graphed_chunk:
-            return state.status.cpu().numpy()
+            with span("pgf.wait"):
+                return state.status.cpu().numpy()
         device = state.status.device
         launches = device_launches(device)
-        packed = torch.cat([state.status, launches]).cpu().numpy()
+        packed = torch.cat([state.status, launches])
+        with span("pgf.wait"):
+            packed = packed.cpu().numpy()
         lanes = state.status.numel()
         add_device_launches(device, packed[lanes:])
         return packed[:lanes]
@@ -390,11 +394,13 @@ class BatchedSolver:
         problem."""
         params = self.params
         loop = self.loop
-        data = self._data(data)
-        x, y = self._initial(x0, y0, data)
-        if self.parametric:
-            loop.bind(data)
-        state = loop.init_state(x, y)
+        begin_call()
+        with span("pgf.prepare"):
+            data = self._data(data)
+            x, y = self._initial(x0, y0, data)
+            if self.parametric:
+                loop.bind(data)
+            state = loop.init_state(x, y)
 
         timer = Timer(params.time_limit)
         compact = self.compact
@@ -402,8 +408,6 @@ class BatchedSolver:
             compact = x.shape[0] >= 4 * self.min_tier
         if compact:
             state = self._solve_compacting(state, data, timer)
-            if self.parametric:  # finalize reads every lane's data again
-                loop.bind(data)
         else:
             while True:
                 state = loop.run_chunk(state, params.jit_chunk)
@@ -412,7 +416,10 @@ class BatchedSolver:
                 if timer.reached_time_limit():
                     state = _time_out(state)
                     break
-        return loop.finalize(state)
+        with span("pgf.finish"):
+            if compact and self.parametric:  # finalize reads every lane's data again
+                loop.bind(data)
+            return loop.finalize(state)
 
     def _solve_compacting(self, state: LaneState, data, timer) -> LaneState:
         """Chunked solve with lane harvesting and width compaction
@@ -460,19 +467,21 @@ class BatchedSolver:
                 new_width //= 4
             if new_width == width:
                 continue
-            archive = scatter(archive, state, orig_idx)
-            done_rows = np.where(~running)[0]
-            pad_rows = np.resize(done_rows, new_width - keep.size)
-            gather = torch.as_tensor(np.concatenate([keep, pad_rows]), device=self.device)
-            state = tree_map(lambda a: a[gather], state)
-            if data is not None:
-                data = tuple(a[gather] for a in data)
-                loop.bind(data)
-            orig_idx = orig_idx[gather]
-            orig_idx[keep.size :] = batch
-            active = active[keep]
+            with span("pgf.compact", width=width, new_width=new_width):
+                archive = scatter(archive, state, orig_idx)
+                done_rows = np.where(~running)[0]
+                pad_rows = np.resize(done_rows, new_width - keep.size)
+                gather = torch.as_tensor(np.concatenate([keep, pad_rows]), device=self.device)
+                state = tree_map(lambda a: a[gather], state)
+                if data is not None:
+                    data = tuple(a[gather] for a in data)
+                    loop.bind(data)
+                orig_idx = orig_idx[gather]
+                orig_idx[keep.size :] = batch
+                active = active[keep]
             shrunk = True
 
         if shrunk:
-            state = scatter(archive, state, orig_idx)
+            with span("pgf.compact", width=state.status.shape[0], new_width=batch):
+                state = scatter(archive, state, orig_idx)
         return _time_out(state) if timed_out else state

@@ -64,7 +64,7 @@ from .status import RUNNING, SolverStatus
 from .step.control import compute_step, make_control_cfg, make_controller
 from .timer import Timer
 from .transform import Transformation
-from .util import HOST_READS, ChunkGraph, _capture, add_device_launches, device_launches, select
+from .util import HOST_READS, ChunkGraph, _capture, add_device_launches, begin_call, device_launches, select, span
 
 
 class LoopState(NamedTuple):
@@ -408,19 +408,32 @@ class SolveLoop:
         ``(state, sol, scalars)``: the final state (tensors that a later
         solve does not overwrite), the solution triple, and the scalars as
         a list of floats."""
+        state, sol, scalars = self.run_chunks(x, y, timer, state, ckpt)
+        return self.copy_out(state), self.copy_out(sol), scalars
+
+    def copy_out(self, tree):
+        """``tree`` as tensors that a later solve does not overwrite: on the
+        graphed route, copies of the graph's buffers."""
+        return _clone_tree(tree) if self.chunk_route() == self.graphed_chunk else tree
+
+    def run_chunks(self, x, y, timer: Timer, state=None, ckpt=None):
+        """``run_fused`` without its last step: the state and solution
+        returned may be the graph's buffers (``copy_out``)."""
         run_chunk = self.chunk_route()
         if state is None:
             state = self.init_state(x, y)
         k = self.params.jit_chunk
         graphed = run_chunk == self.graphed_chunk
         while True:
-            state = run_chunk(state, k)
-            sol, scalars = self._finalize(state, x, y)
-            if graphed:  # with the kernel launches that the chunk's bodies counted
-                launches = device_launches(state.status.device)
-                scalars = torch.cat([scalars, launches.to(torch.float64)])
+            with span("pgf.chunk", width=1, bodies=k):
+                state = run_chunk(state, k)
+                sol, scalars = self._finalize(state, x, y)
+                if graphed:  # with the kernel launches that the chunk's bodies counted
+                    launches = device_launches(state.status.device)
+                    scalars = torch.cat([scalars, launches.to(torch.float64)])
             HOST_READS["chunk"] += 1
-            scalars = scalars.tolist()
+            with span("pgf.wait"):
+                scalars = scalars.tolist()
             if graphed:
                 n_scalars = len(scalars) - launches.numel()
                 add_device_launches(state.status.device, scalars[n_scalars:])
@@ -433,8 +446,6 @@ class SolveLoop:
                 scalars[-1] = int(SolverStatus.TimeLimit)
                 state = state._replace(status=torch.full_like(state.status, int(SolverStatus.TimeLimit)))
                 break
-        if graphed:  # the graph's buffers: the next solve overwrites them
-            state, sol = _clone_tree(state), _clone_tree(sol)
         return state, sol, scalars
 
 
@@ -531,39 +542,50 @@ class Solver:
         goes on bit for bit as the uninterrupted one would.  A snapshot of
         the JAX package's loop resumes here too.  ``params.profile_dir``
         traces the solve with ``torch.profiler`` into that directory."""
+        if self.params.profile_dir:
+            return _profiled(lambda: self._solve(x0, y0, checkpoint_path, resume), self.params.profile_dir,
+                             self.device)
+        return self._solve(x0, y0, checkpoint_path, resume)
+
+    def _solve(self, x0, y0, checkpoint_path, resume) -> SolverResult:
         params = self.params
         loop = self._loop
+        begin_call()
 
-        x, y = self.transform.create_transformed_initial(x0, y0, self.device)
+        with span("pgf.prepare"):
+            x, y = self.transform.create_transformed_initial(x0, y0, self.device)
 
-        if params.validate_input:
-            try:
-                validate_fns(self.transform.fns, x, y)
-            except EvalError as e:
-                raise Exception("Failed to evaluate initial iterate") from e
+            if params.validate_input:
+                with span("pgf.check_input"):
+                    try:
+                        validate_fns(self.transform.fns, x, y)
+                    except EvalError as e:
+                        raise Exception("Failed to evaluate initial iterate") from e
 
-        print_problem_stats(self.problem, loop.n, loop.m)
+            print_problem_stats(self.problem, loop.n, loop.m)
 
-        deriv_check_problem(self.problem, params, x, y)
+            deriv_check_problem(self.problem, params, x, y)
 
-        timer = Timer(params.time_limit)
+            timer = Timer(params.time_limit)
 
-        state0 = None
-        ckpt = None
-        if checkpoint_path is not None:
-            from .checkpoint import CheckpointManager
+            ckpt = None
+            state0 = loop.init_state(x, y)
+            if checkpoint_path is not None:
+                from .checkpoint import CheckpointManager
 
-            ckpt = CheckpointManager(checkpoint_path)
-            if resume and ckpt.exists():
-                state0 = ckpt.restore(loop.init_state(x, y))
+                ckpt = CheckpointManager(checkpoint_path)
+                if resume and ckpt.exists():
+                    state0 = ckpt.restore(state0)
 
-        def drive():
-            return loop.run_fused(x, y, timer, state=state0, ckpt=ckpt)
+        state, sol, scalars = loop.run_chunks(x, y, timer, state=state0, ckpt=ckpt)
+        with span("pgf.finish"):
+            return self._result(loop.copy_out(state), loop.copy_out(sol), scalars, timer)
 
-        if params.profile_dir:
-            state, (x_r, y_r, d_r), scalars = _profiled(drive, params.profile_dir, self.device)
-        else:
-            state, (x_r, y_r, d_r), scalars = drive()
+    def _result(self, state, sol, scalars, timer) -> SolverResult:
+        """The ``SolverResult`` of a solve that ended in ``state`` with the
+        solution triple ``sol`` and the scalars of its last read."""
+        params = self.params
+        x_r, y_r, d_r = sol
         total_time = timer.elapsed()
         (direct_dist, final_stat_res, final_cons_violation, final_obj, rho, path_dist, lamb,
          iterations, accepted_steps, penalty_changes, *counts) = scalars[:15]

@@ -6,10 +6,12 @@ Every helper acts on the last axis, so it serves one instance (vectors
 
 import contextlib
 import gc
+import itertools
 import threading
 import time
 import weakref
-from collections import Counter
+from collections import Counter, deque
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +38,84 @@ _DEVICE_LAUNCHES = {}
 """Per device: [the launches counted on the device by CUDA graph replays,
 one int64 entry per key of ``LAUNCH_COUNTERS`` in order (``LAUNCH_SLOTS``
 of them), and the part of each already added on the host]."""
+
+
+CAPTURES = Counter()
+"""The process's ``ChunkGraph`` captures: ``graphs`` captured and ``ns``,
+the host time they took, warm-up run included."""
+
+SPAN_RING = 65536
+
+
+class Span(NamedTuple):
+    """One program span: ``index`` numbers every span recorded in the
+    process, ``parent`` is the index of the span that encloses it (-1 for
+    none), ``call`` the ``begin_call`` number of the solve it belongs to;
+    times are ``time.time_ns()``, the clock of the profiler's events."""
+
+    index: int
+    name: str
+    start_ns: int
+    end_ns: int
+    call: int
+    parent: int
+    attrs: dict
+
+
+SPANS = deque(maxlen=SPAN_RING)
+"""The last ``SPAN_RING`` program spans (``Span``), in the order they
+ended.  ``span`` records only while a ``torch.profiler`` records."""
+
+_NO_SPAN = contextlib.nullcontext()
+_SPAN_INDEX = itertools.count()
+_CALLS = itertools.count(1)
+_call = 0
+_open_spans = threading.local()  # the indices of this thread's open spans
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def begin_call() -> None:
+    """Start a new solve call: the spans recorded from here on carry its
+    number."""
+    global _call
+    _call = next(_CALLS)
+
+
+def span(name: str, **attrs):
+    """A context manager that records the host's time inside it as a
+    ``Span`` in ``SPANS`` and as an operator event ``name`` in the
+    profiler's trace, while a ``torch.profiler`` records.  Otherwise it
+    returns one shared null context: no record, no clock read.  Span sites
+    lie at the solve drivers' layer boundaries, never inside a captured body or
+    around a single graph replay.
+
+    The profiler's copy is a record function of operator scope, not
+    ``torch.profiler.record_function``: the profiler mirrors a user
+    annotation onto the device's timeline over the kernels launched inside
+    it, and torch 2.11 reports that mirror as a kernel, which a reader of
+    the trace would count as device work."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return _recorded(name, attrs)
+
+
+@contextlib.contextmanager
+def _recorded(name, attrs):
+    stack = _open_spans.__dict__.setdefault("stack", [])
+    parent = stack[-1] if stack else -1
+    index = next(_SPAN_INDEX)
+    stack.append(index)
+    event = torch._C._profiler._RecordFunctionFast(name)
+    # each clock read follows the profiler's own by about a microsecond
+    event.__enter__()
+    start = time.time_ns()
+    try:
+        yield
+    finally:
+        event.__exit__(None, None, None)
+        end = time.time_ns()
+        stack.pop()
+        SPANS.append(Span(index, name, start, end, _call, parent, attrs))
 
 
 def register_launches(counter) -> None:
@@ -277,7 +357,7 @@ class ChunkGraph:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         device_launches(device)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         static = tree_map(torch.clone, state)
         stream = torch.cuda.Stream(device=device)
         stream.wait_stream(torch.cuda.current_stream(device))
@@ -303,8 +383,10 @@ class ChunkGraph:
             raise GraphCaptureError(f"capturing the solve loop's iteration failed: {err}") from err
 
         entry = {"static": static, "graph": graph}
+        ns = time.perf_counter_ns() - t0
         self.captures += 1
-        self.capture_seconds += time.perf_counter() - t0
+        self.capture_seconds += ns * 1e-9
+        CAPTURES.update(graphs=1, ns=ns)
         return entry
 
     def entry(self, state):

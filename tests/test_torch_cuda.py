@@ -495,6 +495,24 @@ def test_graphed_loop_equals_eager_loop(cuda, case, batched):
             assert (r.status, r.iterations, r.num_accepted_steps) == (ref.status, ref.iterations, ref.num_accepted_steps)
 
 
+def test_captures_counted_once_per_width(cuda):
+    """``util.CAPTURES`` counts the process's graph captures: a batched
+    solver captures one graph, and adds to the capture time, at each width
+    new to it, and none at a width it has."""
+    from pygradflow_torch.parallel import BatchedSolver
+    from pygradflow_torch.util import CAPTURES
+
+    from .torch_parity import Rosenbrock
+
+    solver = BatchedSolver(Rosenbrock(), Params(jit_chunk=8), compact=False, device=cuda)
+    x0 = np.random.default_rng(4).uniform(-1.5, 1.5, (16, 2))
+    for width, new in ((8, 1), (8, 0), (16, 1), (4, 1), (16, 0)):
+        graphs, ns, captures = CAPTURES["graphs"], CAPTURES["ns"], solver.loop.graph.captures
+        solver.solve(x0[:width])
+        assert CAPTURES["graphs"] - graphs == new == solver.loop.graph.captures - captures, width
+        assert (CAPTURES["ns"] > ns) == bool(new), width
+
+
 def test_host_reading_problem_raises_on_the_card(cuda):
     """A problem whose objective branches on a tensor cannot be captured:
     the solve raises and names the objective.  The process goes on: HS71

@@ -197,7 +197,7 @@ def test_migrating_names_every_deliberate_difference():
     assert len(headings) >= 20
     with open(os.path.join(TORCH_DOCS, "MIGRATING.md")) as f:
         note = f.read()
-    names = [re.sub(r" \(PR \d+\)$", "", h.rstrip(".")) for h in headings]
+    names = [re.sub(r" \(PRs? [\d, ]+\)$", "", h.rstrip(".")) for h in headings]
     missing = [h for h in names if f"**{h}.**" not in note]
     assert not missing, f"docs/torch/MIGRATING.md does not name {missing}"
 
