@@ -15,8 +15,9 @@ chunk runs up to ``params.jit_chunk`` bodies and the host reads the status
 vector once per chunk (``LaneLoop.read``, ``util.HOST_READS["chunk"]``), as
 the JAX package's ``_run_chunk`` does.  On the card the body is a CUDA
 graph (``util.ChunkGraph``), captured at the first use of each width and
-replayed ``jit_chunk`` times per chunk (a lane whose status is terminal
-passes through a replay unchanged); on the CPU, or for a configuration in
+replayed up to ``jit_chunk`` times per chunk, stopped soon after every lane
+is terminal (a lane whose status is terminal passes through a replay
+unchanged); on the CPU, or for a configuration in
 ``solver.EAGER_ON_CARD``, the same body runs eagerly, checking before each
 iteration whether a lane still runs (on the card one host read each,
 ``HOST_READS["eager"]``).  The inner loops of BoxReduced and Optimizing
@@ -262,8 +263,9 @@ class LaneLoop:
         return state
 
     def graphed_chunk(self, state: LaneState, k: int) -> LaneState:
-        """``k`` bodies replayed as the CUDA graph of this width, a
-        terminal lane unchanged by them; no host read."""
+        """Up to ``k`` bodies replayed as the CUDA graph of this width,
+        stopped soon after every lane is terminal (``util.ChunkGraph.run``),
+        a terminal lane unchanged by them; no blocking read of the state."""
         return self.graph.run(state, k)
 
     def chunk_route(self):
@@ -276,9 +278,14 @@ class LaneLoop:
 
     def run_chunk(self, state: LaneState, chunk: int) -> LaneState:
         """At most ``chunk`` iterations while a lane runs, through the
-        route of ``chunk_route``; no host read."""
-        with span("pgf.chunk", width=state.status.shape[0], bodies=chunk):
-            return self.chunk_route()(state, chunk)
+        route of ``chunk_route``; no blocking read.  The span's ``bodies``
+        is, on the graphed route, the bodies replayed."""
+        route = self.chunk_route()
+        with span("pgf.chunk", width=state.status.shape[0], bodies=chunk) as attrs:
+            state = route(state, chunk)
+            if attrs is not None and route == self.graphed_chunk:
+                attrs["bodies"] = self.graph.replayed
+            return state
 
     def read(self, state: LaneState):
         """The status vector on the host (numpy): the one host read per

@@ -17,8 +17,9 @@ status, the counts and the final residuals in one packed vector, the
 finalizer fused into the read as in the JAX package's ``run_fused``.  The
 time limit is checked there, and a ``checkpoint.CheckpointManager`` writes
 its snapshot.  On the card a chunk replays the body as a CUDA graph
-(``util.ChunkGraph``), captured once per solver: the counterpart of the
-JAX package's ``lax.while_loop``.  On the CPU, or for a configuration in
+(``util.ChunkGraph``), captured once per solver, up to ``jit_chunk``
+times and stopped soon after the status is terminal: the counterpart of
+the JAX package's ``lax.while_loop``.  On the CPU, or for a configuration in
 ``EAGER_ON_CARD``, the same body runs eagerly, checking the status before
 each iteration: on the CPU that is no device read, on the card one
 (``HOST_READS["eager"]``).  ``graph_route`` decides before the solve.
@@ -355,8 +356,9 @@ class SolveLoop:
         return state
 
     def graphed_chunk(self, state: LoopState, k: int) -> LoopState:
-        """``k`` bodies replayed as the captured CUDA graph, a terminal
-        state unchanged by them; no host read."""
+        """Up to ``k`` bodies replayed as the captured CUDA graph, stopped
+        soon after the status is terminal (``util.ChunkGraph.run``), a
+        terminal state unchanged by them; no blocking read of the state."""
         return self.graph.run(state, k)
 
     def chunk_route(self):
@@ -425,8 +427,10 @@ class SolveLoop:
         k = self.params.jit_chunk
         graphed = run_chunk == self.graphed_chunk
         while True:
-            with span("pgf.chunk", width=1, bodies=k):
+            with span("pgf.chunk", width=1, bodies=k) as attrs:
                 state = run_chunk(state, k)
+                if graphed and attrs is not None:  # the bodies replayed
+                    attrs["bodies"] = self.graph.replayed
                 sol, scalars = self._finalize(state, x, y)
                 if graphed:  # with the kernel launches that the chunk's bodies counted
                     launches = device_launches(state.status.device)

@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from .status import RUNNING
+
 HOST_READS = Counter()
 """Host reads, one count per read, keyed by loop: ``chunk``, the solve
 loop's one read per chunk of ``params.jit_chunk`` iterations (single and
@@ -43,6 +45,24 @@ of them), and the part of each already added on the host]."""
 CAPTURES = Counter()
 """The process's ``ChunkGraph`` captures: ``graphs`` captured and ``ns``,
 the host time they took, warm-up run included."""
+
+REPLAYS = Counter()
+"""The process's ``ChunkGraph`` replays: ``bodies``, the graph replays run
+(one loop body each), and ``stopped``, the chunks that ended before their
+``k`` bodies because a replay's done flag read terminal."""
+
+LOOKAHEAD = 2
+"""Graph replays that ``ChunkGraph.run`` keeps queued ahead of the done
+flag it reads (``replay_until_done``): before it enqueues replay ``i`` it
+waits for replay ``i - LOOKAHEAD`` and reads that replay's flag, so
+``LOOKAHEAD - 1`` bodies stay queued on the device while the host wakes,
+reads and enqueues the next one, and a chunk that ends early runs at most
+``LOOKAHEAD - 1`` bodies past its terminal one.  Measured on an H100
+(Rosenbrock under ``Params()``, no profiler): the host enqueues a replay
+in about 31 us, and a body runs 0.74 ms on the device at width 1 and
+0.95 ms at width 16384, so one queued body covers the host's turn more
+than twenty times over; the flag's copy, event and read leave a body's
+device time as it was."""
 
 SPAN_RING = 65536
 
@@ -84,8 +104,10 @@ def begin_call() -> None:
 def span(name: str, **attrs):
     """A context manager that records the host's time inside it as a
     ``Span`` in ``SPANS`` and as an operator event ``name`` in the
-    profiler's trace, while a ``torch.profiler`` records.  Otherwise it
-    returns one shared null context: no record, no clock read.  Span sites
+    profiler's trace, while a ``torch.profiler`` records; it enters as the
+    span's ``attrs`` dict, which the site may update until the span ends.
+    Otherwise it returns one shared null context, which enters as None: no
+    record, no clock read.  Span sites
     lie at the solve drivers' layer boundaries, never inside a captured body or
     around a single graph replay.
 
@@ -110,7 +132,7 @@ def _recorded(name, attrs):
     event.__enter__()
     start = time.time_ns()
     try:
-        yield
+        yield attrs
     finally:
         event.__exit__(None, None, None)
         end = time.time_ns()
@@ -312,21 +334,40 @@ class GraphCaptureError(RuntimeError):
     something in it reads the host."""
 
 
+def replay_until_done(replay, done, k: int, lookahead: int) -> int:
+    """Up to ``k`` graph replays with ``lookahead`` of them in flight,
+    stopped once a replay's done flag reads true.  ``replay(i)`` enqueues
+    replay ``i`` (from 0) and the copy of its done flag; ``done(i)`` waits
+    for replay ``i`` and reads its flag.  Before replay ``i >= lookahead``
+    the flag read is replay ``i - lookahead``'s own, so the count is exact:
+    if the ``t``-th replay (from 1) is the first whose flag is true, the
+    replays made are ``min(k, t + lookahead - 1)``.  Returns that count."""
+    for i in range(k):
+        if i >= lookahead and done(i - lookahead):
+            return i
+        replay(i)
+    return k
+
+
 class ChunkGraph:
     """A loop body ``body(state) -> state`` run on the card as a CUDA graph,
     the counterpart of the JAX package's ``lax.while_loop`` chunk.
 
     For each shape of the state (a width tier of a lane stack) the body is
     captured once (``_capturing``'s rules, after a warm-up on the capture
-    stream) on static state buffers, with its result copied back into them.
-    A chunk copies the state in and replays the graph ``k`` times with no
-    host read; a terminal state passes through a replay unchanged (the
-    body's masked select), so the chunk's result does not depend on ``k``.
-    The replays run whole bodies after the status is terminal, where the
-    JAX package's ``lax.while_loop`` stops: a conditional IF node around
-    the body stopped them on the device, but on a card time-sliced between
-    several processes its launches failed at random with an unspecified
-    launch failure.  Every shape shares one memory pool:
+    stream) on static state buffers, with its result copied back into them
+    and a one-element done flag set: every entry of the state's ``status``
+    terminal.  A chunk copies the state in and replays the graph up to
+    ``k`` times with no blocking read of the state: after each replay the
+    host copies the done flag into a pinned slot of its own and records an
+    event, and it stops once a flag ``LOOKAHEAD`` replays back reads true
+    (``replay_until_done``).  A terminal state passes through a replay
+    unchanged (the body's masked select), so the chunk's result does not
+    depend on ``k`` or on where the replays stop.  The stop is the host's,
+    with plain replays, copies and events: a conditional IF node around the
+    body stopped the replays on the device, but on a card time-sliced
+    between several processes its launches failed at random with an
+    unspecified launch failure.  Every shape shares one memory pool:
     nothing allocated during a capture outlives it, so each graph's pool
     memory is scratch of its own replay.  A failed capture raises
     :class:`GraphCaptureError`, naming through ``diagnose(state)`` the
@@ -334,9 +375,10 @@ class ChunkGraph:
     eager fallback.
 
     The state returned is the static buffers, which the next chunk of the
-    same shape goes on from and overwrites.  The kernels launched in the
-    body count their launches on the device (``count_launch``), once per
-    body run."""
+    same shape goes on from and overwrites; ``replayed`` is the number of
+    replays the last chunk made (``REPLAYS`` sums them).  The kernels
+    launched in the body count their launches on the device
+    (``count_launch``), once per body run."""
 
     def __init__(self, body, diagnose=None):
         # a bound method is held weakly: the loop that owns this graph owns
@@ -345,8 +387,10 @@ class ChunkGraph:
         self.diagnose = diagnose
         self._entries = {}
         self._pool = None
+        self._flags = None  # pinned slots of the done flags and their events
         self.captures = 0
         self.capture_seconds = 0.0
+        self.replayed = 0
 
     @staticmethod
     def _key(state):
@@ -366,12 +410,14 @@ class ChunkGraph:
             body(static)  # warm-up: handles, workspaces and caches outside the capture
         torch.cuda.current_stream(device).wait_stream(stream)
 
+        done = torch.zeros((), dtype=torch.bool, device=device)
         graph = torch.cuda.CUDAGraph()
         try:
             with _capturing(graph, stream, self._pool):
                 for dst, src in zip(_flat(static), _flat(body(static))):
                     if dst is not src:
                         dst.copy_(src)
+                torch.all(static.status != RUNNING, out=done)
         except RuntimeError as err:
             name = self.diagnose(state) if self.diagnose is not None else None
             if name is not None:
@@ -382,7 +428,7 @@ class ChunkGraph:
                 ) from err
             raise GraphCaptureError(f"capturing the solve loop's iteration failed: {err}") from err
 
-        entry = {"static": static, "graph": graph}
+        entry = {"static": static, "graph": graph, "done": done}
         ns = time.perf_counter_ns() - t0
         self.captures += 1
         self.capture_seconds += ns * 1e-9
@@ -397,15 +443,32 @@ class ChunkGraph:
         return self._entries[key]
 
     def run(self, state, k: int):
-        """``k`` graph replays from ``state``: ``k`` bodies, those after the
-        status is terminal keeping the state bit for bit."""
+        """Up to ``k`` graph replays from ``state``, ending ``LOOKAHEAD - 1``
+        replays after the first whose state is terminal; those bodies keep
+        the state bit for bit."""
         entry = self.entry(state)
-        static = entry["static"]
+        static, graph, done = entry["static"], entry["graph"], entry["done"]
         for dst, src in zip(_flat(static), _flat(state)):
             if dst is not src:
                 dst.copy_(src)
-        for _ in range(k):
-            entry["graph"].replay()
+        if self._flags is None:
+            pinned = torch.zeros(LOOKAHEAD + 1, dtype=torch.bool, pin_memory=True)
+            self._flags = ([pinned[j] for j in range(LOOKAHEAD + 1)], pinned.numpy(),
+                           [torch.cuda.Event() for _ in range(LOOKAHEAD + 1)])
+        slots, flags, events = self._flags
+        stream = torch.cuda.current_stream(done.device)
+
+        def replay(i):
+            graph.replay()
+            slots[i % len(slots)].copy_(done, non_blocking=True)
+            events[i % len(slots)].record(stream)
+
+        def read(i):
+            events[i % len(slots)].synchronize()
+            return bool(flags[i % len(slots)])
+
+        self.replayed = replay_until_done(replay, read, k, len(slots) - 1)
+        REPLAYS.update(bodies=self.replayed, stopped=int(self.replayed < k))
         return static
 
 

@@ -28,7 +28,7 @@ from pygradflow_torch.parallel import BatchedSolver
 from pygradflow_torch.runners.control import PendulumControl as TPendulum
 from pygradflow_torch.solver import graph_route
 from pygradflow_torch.status import RUNNING
-from pygradflow_torch.util import HOST_READS
+from pygradflow_torch.util import HOST_READS, LOOKAHEAD, replay_until_done
 from pygradflow_tpu.parallel import BatchedSolver as JBatchedSolver
 from pygradflow_tpu.runners.control import PendulumControl as JPendulum
 
@@ -304,3 +304,75 @@ def test_device_launch_counts_reach_the_host_counters():
         _DEVICE_LAUNCHES.pop(device, None)
         del LAUNCH_COUNTERS[[c is late for c in LAUNCH_COUNTERS].index(True)]
         lk.LAUNCHES.update(before)
+
+
+def _fake_chunk(k, first_done, lookahead):
+    """``replay_until_done`` over a fake card: replay ``i`` (from 0) writes
+    its done flag, true from the ``first_done``-th replay (from 1) on, into
+    slot ``i % (lookahead + 1)`` of a ring, as ``ChunkGraph.run`` does.  A
+    read must find its replay's own flag still in its slot and must be the
+    flag of replay ``i - lookahead``, where ``i`` is the replay about to be
+    enqueued.  Returns the count returned, the replays made and the reads
+    (replay index, flag read)."""
+    slots = lookahead + 1
+    writer, made, reads = {}, [], []
+
+    def replay(i):
+        assert i == len(made)
+        made.append(i)
+        writer[i % slots] = i
+
+    def done(i):
+        assert writer[i % slots] == i, "the slot was overwritten by a later replay"
+        assert i == len(made) - lookahead
+        reads.append((i, i + 1 >= first_done))
+        return reads[-1][1]
+
+    return replay_until_done(replay, done, k, lookahead), made, reads
+
+
+@pytest.mark.parametrize("lookahead", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 7, 64])
+def test_replays_stop_at_the_exact_count(k, lookahead):
+    """If replay ``t`` is the first whose state is terminal, a chunk makes
+    exactly ``min(k, t + lookahead - 1)`` replays, for every ``t``."""
+    for t in range(1, k + 2):
+        n, made, _ = _fake_chunk(k, t, lookahead)
+        assert n == len(made) == min(k, t + lookahead - 1), t
+        assert made == list(range(n))
+
+
+@pytest.mark.parametrize("lookahead", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 7, 64])
+def test_replays_run_k_when_nothing_ends(k, lookahead):
+    """A chunk in which no replay's state is terminal runs all ``k``
+    replays, reading a flag before each one past the first ``lookahead``."""
+    n, made, reads = _fake_chunk(k, 10**9, lookahead)
+    assert n == k and made == list(range(k))
+    assert [i for i, _ in reads] == list(range(max(0, k - lookahead)))
+    assert not any(flag for _, flag in reads)
+
+
+@pytest.mark.parametrize("lookahead", [1, 2, 3])
+def test_replays_never_stop_before_a_terminal_flag(lookahead):
+    """A chunk stops only on a flag that read true, after the replay that
+    made the state terminal: every replay up to the first terminal one is
+    made, and only the last read may be true."""
+    k = 20
+    for t in range(1, k + 2):
+        n, made, reads = _fake_chunk(k, t, lookahead)
+        assert n >= min(k, t)
+        assert not any(flag for _, flag in reads[:-1])
+        if n < k:
+            assert reads[-1] == (n - lookahead, True) and n - lookahead + 1 >= t
+
+
+def test_replays_read_the_flag_of_replay_i_minus_lookahead():
+    """With the module's ``LOOKAHEAD``, each read before replay ``i`` is of
+    replay ``i - LOOKAHEAD``'s own slot (``_fake_chunk`` asserts it at every
+    read), and ``LOOKAHEAD - 1`` replays are made past the first terminal
+    one."""
+    assert LOOKAHEAD >= 2  # at least one body stays queued while the host reads
+    n, made, reads = _fake_chunk(64, 31, LOOKAHEAD)
+    assert n == 31 + LOOKAHEAD - 1
+    assert [i for i, _ in reads] == list(range(n - LOOKAHEAD + 1))

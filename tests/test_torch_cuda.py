@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from pygradflow_torch import LinearSolverType, Params, Solver
+from pygradflow_torch import LinearSolverType, Params, Solver, util
 from pygradflow_torch.linalg import ldlt_kernels as lk
 from pygradflow_torch.linalg.ldlt import ldlt_num_neg_eigvals
 from pygradflow_torch.runners.control import PendulumControl
@@ -22,12 +22,21 @@ from .torch_parity import saddle
 pytestmark = pytest.mark.cuda
 
 
+def replays(first_terminal, jit_chunk):
+    """The bodies a graphed solve replays when its ``first_terminal``-th
+    body (from 1) is the first to leave a terminal state: every body of the
+    chunks before that body's chunk, and in its chunk up to
+    ``util.LOOKAHEAD - 1`` bodies past it (``util.replay_until_done``)."""
+    full = (first_terminal - 1) // jit_chunk
+    return full * jit_chunk + min(jit_chunk, first_terminal - full * jit_chunk + util.LOOKAHEAD - 1)
+
+
 def graphed_launches(iterations, jit_chunk=Params().jit_chunk):
-    """A kernel's launches in a graphed solve that launches it once per
-    iteration: one per body replayed (``jit_chunk`` per chunk, the bodies
-    after the terminal one included, their results masked) and one in the
-    capture's warm-up."""
-    return -(-(iterations + 1) // jit_chunk) * jit_chunk + 1
+    """A kernel's launches in a graphed single solve that launches it once
+    per iteration: one per body replayed (the body after the last iteration
+    finds the status terminal; the bodies replayed after it have their
+    results masked) and one in the capture's warm-up."""
+    return replays(iterations + 1, jit_chunk) + 1
 
 
 @pytest.fixture
@@ -493,6 +502,62 @@ def test_graphed_loop_equals_eager_loop(cuda, case, batched):
             assert torch.equal(getattr(r, field), getattr(ref, field)), field
         if not batched:
             assert (r.status, r.iterations, r.num_accepted_steps) == (ref.status, ref.iterations, ref.num_accepted_steps)
+
+
+@pytest.mark.parametrize("jit_chunk", [1, 7, 64])
+@pytest.mark.parametrize("case", ["rosenbrock", "hs71"])
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "lanes"])
+def test_replays_stop_after_the_terminal_body(cuda, case, batched, jit_chunk, monkeypatch):
+    """A graphed chunk stops its replays ``util.LOOKAHEAD - 1`` bodies after
+    the first terminal one (``util.REPLAYS`` counts them by that rule) and
+    gives, bit for bit, the eager loop's answer and that of the same solve
+    with every chunk replayed whole."""
+    from pygradflow_torch.parallel import BatchedSolver
+
+    from .torch_parity import HS71, Rosenbrock
+
+    problem = Rosenbrock() if case == "rosenbrock" else HS71()
+    x0 = np.array([0.0, 0.0]) if case == "rosenbrock" else np.array([1.0, 5.0, 5.0, 1.0, 0.0])
+    y0 = None if case == "rosenbrock" else np.zeros(2)
+    if batched:
+        x0 = x0 + 1e-3 * np.random.default_rng(5).standard_normal((3, x0.shape[0]))
+        y0 = None if y0 is None else np.tile(y0, (3, 1))
+    params = Params(jit_chunk=jit_chunk)
+
+    def solve(solver):
+        before = dict(util.REPLAYS)
+        res = solver.solve(x0, y0)
+        return res, {key: util.REPLAYS[key] - before.get(key, 0) for key in ("bodies", "stopped")}
+
+    def make():
+        return (BatchedSolver if batched else Solver)(problem, params, device=cuda)
+
+    res, counted = solve(make())
+    # a lane's body runs the iteration, then the terminal tests; the single
+    # body tests first, so it finds the status terminal one body later
+    iters = int(res.iterations.max()) if batched else res.iterations
+    first_terminal = iters if batched else iters + 1
+    assert counted["bodies"] == replays(first_terminal, jit_chunk)
+    in_last_chunk = first_terminal - (first_terminal - 1) // jit_chunk * jit_chunk
+    assert counted["stopped"] == int(in_last_chunk + util.LOOKAHEAD - 1 < jit_chunk)
+
+    def every_body(replay, done, k, lookahead):
+        for i in range(k):
+            replay(i)
+        return k
+
+    ref = _eager(make()).solve(x0, y0)
+    with monkeypatch.context() as m:
+        m.setattr(util, "replay_until_done", every_body)
+        whole, whole_counted = solve(make())
+    assert whole_counted == {"bodies": -(-first_terminal // jit_chunk) * jit_chunk, "stopped": 0}
+    fields = ("x", "y", "d", "status", "iterations", "accepted_steps") if batched else ("x", "y", "d")
+    for other in (ref, whole):
+        for field in fields:
+            assert torch.equal(getattr(res, field), getattr(other, field)), field
+        if not batched:
+            assert (res.status, res.iterations, res.num_accepted_steps) == (
+                other.status, other.iterations, other.num_accepted_steps)
 
 
 def test_captures_counted_once_per_width(cuda):
