@@ -41,6 +41,14 @@ LL_BLOCK = 64
 LAUNCHES = {"rl": 0, "ll": 0, "rl_batched": 0}
 register_launches(LAUNCHES)
 
+REFINED = {"solves": 0, "sweeps": 0}
+"""The mixed-precision solves of ``refine_solve``: ``solves``, one per
+call (one system or one stack), and ``sweeps``, one per residual sweep in
+the matrix's own dtype.  Counted as the launches are (``count_launch``),
+so a call inside a captured body counts at every replay.  Apart from
+``LAUNCHES``, whose every key is a factor."""
+register_launches(REFINED)
+
 
 def _padded_size(n: int, block: int) -> int:
     return -(-n // block) * block
@@ -204,6 +212,9 @@ def refine_solve(packed_f32, mat_f64, rhs, iters: int = 3):
     def solve32(r):
         return ldlt_solve(packed_f32, r.to(torch.float32)).to(rhs.dtype)
 
+    count_launch(REFINED, "solves", rhs.device)
+    if iters:
+        count_launch(REFINED, "sweeps", rhs.device, iters)
     x = solve32(rhs)
     for _ in range(iters):
         x = x + solve32(rhs - matvec(mat_f64, x))

@@ -428,6 +428,7 @@ class SolveLoop:
         graphed = run_chunk == self.graphed_chunk
         while True:
             with span("pgf.chunk", width=1, bodies=k) as attrs:
+                refined = _refined_solves() if attrs is not None else None
                 state = run_chunk(state, k)
                 if graphed and attrs is not None:  # the bodies replayed
                     attrs["bodies"] = self.graph.replayed
@@ -436,12 +437,14 @@ class SolveLoop:
                     launches = device_launches(state.status.device)
                     scalars = torch.cat([scalars, launches.to(torch.float64)])
             HOST_READS["chunk"] += 1
-            with span("pgf.wait"):
+            with span("pgf.wait") as attrs:
                 scalars = scalars.tolist()
-            if graphed:
-                n_scalars = len(scalars) - launches.numel()
-                add_device_launches(state.status.device, scalars[n_scalars:])
-                del scalars[n_scalars:]
+                if graphed:
+                    n_scalars = len(scalars) - launches.numel()
+                    add_device_launches(state.status.device, scalars[n_scalars:])
+                    del scalars[n_scalars:]
+                if attrs is not None and refined is not None:  # the chunk's refined KKT solves, now on the host
+                    attrs["kkt_solves"] = _refined_solves() - refined
             if int(scalars[-1]) != RUNNING:
                 break
             if ckpt is not None:
@@ -458,6 +461,16 @@ class SolveLoop:
         limit, with ``ckpt`` writing its snapshot at chunk boundaries (the
         JAX package's ``SolveLoop.run``); returns the final state."""
         return self.run_fused(state.it.x, state.it.y, timer, state=state, ckpt=ckpt)[0]
+
+
+def _refined_solves() -> int:
+    """``ldlt_kernels.REFINED["solves"]``, read only while a profiler
+    records spans.  The kernels' module is imported here and not with this
+    one: a solve on another tier leaves it unloaded, and it registers its
+    launch counts when first imported (``util.register_launches``)."""
+    from .linalg.ldlt_kernels import REFINED
+
+    return REFINED["solves"]
 
 
 def _clone_tree(value):

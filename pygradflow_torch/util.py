@@ -166,18 +166,18 @@ def device_launches(device):
         return _DEVICE_LAUNCHES[device][0]
 
 
-def count_launch(counter, name, device) -> None:
-    """Count one launch of kernel ``name`` in ``counter``.  A launch made
-    while a CUDA graph is captured is counted by an add on the device,
+def count_launch(counter, name, device, times: int = 1) -> None:
+    """Count ``times`` launches of kernel ``name`` in ``counter``.  A launch
+    made while a CUDA graph is captured is counted by an add on the device,
     captured beside the kernel, so that every replay that runs the launch
     counts it; ``add_device_launches`` brings those counts to the host."""
     if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
         if device not in _DEVICE_LAUNCHES:
             raise RuntimeError(f"{name}: launched in a CUDA graph capture without device_launches({device})")
         slot = next(i for i, (c, k) in enumerate(_launch_keys()) if c is counter and k == name)
-        _DEVICE_LAUNCHES[device][0][slot].add_(1)
+        _DEVICE_LAUNCHES[device][0][slot].add_(times)
     else:
-        counter[name] += 1
+        counter[name] += times
 
 
 def add_device_launches(device, values) -> None:

@@ -687,3 +687,37 @@ def test_graphed_solves_in_concurrent_processes(cuda):
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-3000:]
         assert " 0 failed " in out.strip().splitlines()[-1], out[-3000:]
+
+
+def test_cops_chain_graphed_equals_eager(cuda):
+    """The benchmark's COPS hanging chain at nh = 200 (KKT 1409, B3') on
+    its normal path: the graphed solve gives the eager route's bits; B3' is
+    launched once per body replayed, plus once in the capture's warm-up on
+    the first solve, and once per iteration on the eager route; both routes
+    count two refined KKT solves and six float64 sweeps per factor
+    (``ldlt_kernels.REFINED``, on the device inside the graph)."""
+    from pygradflow_torch import SolverStatus
+
+    from . import cops_chain as cc
+
+    prob_g, prob_e = cc.problem(200, cuda), cc.problem(200, cuda)
+    graphed = Solver(prob_g, cc.params(), device=cuda)
+    eager = _eager(Solver(prob_e, cc.params(), device=cuda))
+    for call, (delta, x0) in enumerate(cc.instances(prob_g, 19, 2)):
+        counts = []
+        for solver, prob in ((graphed, prob_g), (eager, prob_e)):
+            launches, refined = lk.LAUNCHES["ll"], dict(lk.REFINED)
+            res = cc.solve(solver, prob, delta, x0)
+            counts.append((res, lk.LAUNCHES["ll"] - launches, {k: lk.REFINED[k] - refined[k] for k in refined}))
+        (res, ll, refined), (ref, ll_eager, refined_eager) = counts
+        assert res.status == SolverStatus.Optimal and res.x.device.type == "cuda"
+        assert (res.status, res.iterations, res.num_accepted_steps) == (ref.status, ref.iterations,
+                                                                         ref.num_accepted_steps)
+        for field in ("x", "y", "d"):
+            assert torch.equal(getattr(res, field), getattr(ref, field)), field
+        assert graphed._loop.graph.captures == 1
+        warm_up = 1 if call == 0 else 0
+        assert ll == graphed._loop.graph.replayed + warm_up == replays(res.iterations + 1, 64) + warm_up
+        assert ll_eager == ref.iterations
+        assert refined == {"solves": 2 * ll, "sweeps": 6 * ll}
+        assert refined_eager == {"solves": 2 * ll_eager, "sweeps": 6 * ll_eager}
