@@ -2823,7 +2823,8 @@ def _loop_bits(label, kind, graphed, eager):
 def loop_phase(card):
     """Phase 14: every configuration of ``LOOP_RUNS`` through the graphed
     and the eager chunk, in turns, on the card.  Holds their results bit for
-    bit and the graphed solve to one host read per chunk; prints ms per
+    bit and the graphed solve to one host read per chunk (and a single
+    solve to one more, of its start's verdicts); prints ms per
     iteration, captures, kernel launches per iteration, the ldlt wrappers'
     launches, and (for ``LOOP_PROFILED``) the device's idle share over a
     warm solve, for both routes.  Returns the ldlt launches of the graphed
@@ -2873,7 +2874,10 @@ def loop_phase(card):
                 reads = dict(HOST_READS)
                 if route == "graphed":
                     chunks = sum(math.ceil((iters + 1) / loop.params.jit_chunk) for loop in _loops(solver))
-                    if set(reads) - {"chunk"} or reads.get("chunk", 0) > chunks + 2 * len(_loops(solver)):
+                    # a single solve's start graph reads its input check's verdicts once
+                    starts = int(kind == "single" and solver.params.validate_input)
+                    if (set(reads) - {"chunk", "start"} or reads.get("start", 0) != starts
+                            or reads.get("chunk", 0) > chunks + 2 * len(_loops(solver))):
                         fail(f"loop {name}: host reads {reads} over {iters} iterations")
                 entry = record.setdefault(route, dict(walls=[]))
                 entry["walls"].append(wall)

@@ -23,6 +23,11 @@ the JAX package's ``lax.while_loop``.  On the CPU, or for a configuration in
 ``EAGER_ON_CARD``, the same body runs eagerly, checking the status before
 each iteration: on the CPU that is no device read, on the card one
 (``HOST_READS["eager"]``).  ``graph_route`` decides before the solve.
+On the graphed route a solve's start is a CUDA graph too
+(``SolveLoop.graphed_start``): the start iterate and, under
+``params.validate_input``, the input check's verdicts from one replay and
+one host read (``HOST_READS["start"]``), in place of ``validate_fns``'s
+eager evaluations and reads.
 
 Lambda, rho, the PI sum and the path length round to the solve's
 precision at each operation, as the JAX package's 0-dim arrays of
@@ -32,6 +37,7 @@ model times ``t += 1/lambda``.  ``params.display`` logs one row per
 iteration (``display.solver_display``) at one host read per row shown.
 """
 
+import contextlib
 import os
 import time
 from typing import Any, NamedTuple
@@ -65,7 +71,37 @@ from .status import RUNNING, SolverStatus
 from .step.control import compute_step, make_control_cfg, make_controller
 from .timer import Timer
 from .transform import Transformation
-from .util import HOST_READS, ChunkGraph, _capture, add_device_launches, begin_call, device_launches, select, span
+from .util import (
+    CAPTURES,
+    HOST_READS,
+    STARTS,
+    ChunkGraph,
+    _capture,
+    add_device_launches,
+    begin_call,
+    cuda_graphed,
+    device_launches,
+    select,
+    span,
+)
+
+
+START_FLAGS = ("objective", "gradient", "constraints", "jacobian", "hessian", "symmetric")
+"""The input check's verdicts in ``Start.flags``, in order: each
+evaluation at the start is finite (``validate_fns``'s tests, in its order;
+a problem without constraints passes their two), and the Lagrangian
+Hessian is symmetric as ``torch.allclose(hess, hess.T, rtol=1e-5,
+atol=1e-8)`` tests it."""
+
+
+class Start(NamedTuple):
+    """A solve's start (``SolveLoop.start``)."""
+
+    it: Iterate
+    flags: Any  # bool (len(START_FLAGS),), or None without params.validate_input
+    # whether the evaluations have validate_fns's shapes: a Python bool,
+    # fixed when the start is captured (True without params.validate_input)
+    shaped: bool
 
 
 class LoopState(NamedTuple):
@@ -163,11 +199,51 @@ class SolveLoop:
         else:
             self.iteration_limit = int(params.iteration_limit_default)
         self.graph = ChunkGraph(self.body, lambda s, fns=self.fns: _diagnose(fns, s.it.x, s.it.y))
+        self._start_graph = None  # graphed_start's replay, captured at its first call
 
     def _scalar(self, value, dtype=None):
         return torch.tensor(value, dtype=self.params.dtype if dtype is None else dtype, device=self.device)
 
-    def init_state(self, x, y) -> LoopState:
+    def start(self, x, y) -> Start:
+        """The start of a solve at ``(x, y)`` as pure tensor code, which
+        ``graphed_start`` captures: the iterate of ``evaluate_iterate`` and,
+        under ``params.validate_input``, ``validate_fns``'s verdicts made on
+        the device (``START_FLAGS``) from the iterate's evaluations and the
+        Lagrangian Hessian's.  The Jacobian is evaluated once more only in
+        matrix-free mode, where the iterate holds none."""
+        it = evaluate_iterate(self.fns, x, y)
+        if not self.params.validate_input:
+            return Start(it, None, True)
+        n, m = self.n, self.m
+        jac = self.fns.cons_jac(x) if self.fns.matrix_free else it.cons_jac
+        hess = self.fns.lag_hess(x, y)
+        shaped = (tuple(it.obj_grad.shape) == (n,) and tuple(it.cons.shape) == (m,)
+                  and tuple(jac.shape) == (m, n) and tuple(hess.shape) == (n, n))
+        flags = [torch.isfinite(t).all() for t in (it.obj, it.obj_grad, it.cons, jac, hess)]
+        if tuple(hess.shape) == (n, n):
+            flags.append(torch.isclose(hess, hess.T, rtol=1e-5, atol=1e-8).all())
+        else:  # the eager check names the shape
+            flags.append(torch.ones((), dtype=torch.bool, device=x.device))
+        return Start(it, torch.stack(flags), shaped)
+
+    def graphed_start(self, x, y) -> Start:
+        """``start(x, y)`` replayed as a CUDA graph, captured at the first
+        call (``util.cuda_graphed``: a warm-up run, then the capture, counted
+        in ``util.CAPTURES``; a capture that fails raises
+        ``GraphCaptureError`` naming the problem function that reads the
+        host).  Returns the graph's output buffers, which the next call
+        overwrites: a solve's first chunk copies them into its own."""
+        if self._start_graph is None:
+            t0 = time.perf_counter_ns()
+            self._start_graph = cuda_graphed(self.start, (x, y), lambda: _diagnose(self.fns, x, y),
+                                             "the solve's start")
+            CAPTURES.update(graphs=1, ns=time.perf_counter_ns() - t0)
+        STARTS["graphed"] += 1
+        return self._start_graph(x, y)
+
+    def init_state(self, x, y, it=None) -> LoopState:
+        """The loop's state at the start ``(x, y)``, with the iterate ``it``
+        when it was evaluated already (``graphed_start``)."""
         params = self.params
         rho0, pstate0 = self.penalty_initial()
         path = ()
@@ -183,7 +259,7 @@ class SolveLoop:
         zero = self._scalar(0, torch.int64)
         counters = Counters.zero(self.device).add(**iterate_eval_counts(self.m))
         return LoopState(
-            it=evaluate_iterate(self.fns, x, y),
+            it=evaluate_iterate(self.fns, x, y) if it is None else it,
             lamb=self._scalar(params.lamb_init),
             rho=self._scalar(rho0),
             error_sum=self._scalar(0.0),
@@ -369,6 +445,10 @@ class SolveLoop:
         if self.device.type == "cuda" and route is None:
             return self.graphed_chunk
         return self.eager_chunk
+
+    def graphed(self) -> bool:
+        """Whether this solve takes the graphed route (``chunk_route``)."""
+        return self.chunk_route() == self.graphed_chunk
 
     def _finalize(self, state: LoopState, x0, y0):
         """What the solve returns, fused into the chunk's one read
@@ -572,12 +652,7 @@ class Solver:
         with span("pgf.prepare"):
             x, y = self.transform.create_transformed_initial(x0, y0, self.device)
 
-            if params.validate_input:
-                with span("pgf.check_input"):
-                    try:
-                        validate_fns(self.transform.fns, x, y)
-                    except EvalError as e:
-                        raise Exception("Failed to evaluate initial iterate") from e
+            it = self._start(x, y)
 
             print_problem_stats(self.problem, loop.n, loop.m)
 
@@ -586,7 +661,7 @@ class Solver:
             timer = Timer(params.time_limit)
 
             ckpt = None
-            state0 = loop.init_state(x, y)
+            state0 = loop.init_state(x, y, it)
             if checkpoint_path is not None:
                 from .checkpoint import CheckpointManager
 
@@ -597,6 +672,40 @@ class Solver:
         state, sol, scalars = loop.run_chunks(x, y, timer, state=state0, ckpt=ckpt)
         with span("pgf.finish"):
             return self._result(loop.copy_out(state), loop.copy_out(sol), scalars, timer)
+
+    def _start(self, x, y):
+        """The input check under ``params.validate_input``, and the start
+        iterate where it comes with it (else None: ``init_state`` evaluates
+        it).  On the graphed route one replay of the loop's start graph
+        gives both, and the check's verdicts come in one host read
+        (``HOST_READS["start"]``): a false finiteness verdict, or shapes
+        that are not the problem's, run ``validate_fns`` at the same point
+        to raise the error it names, and a false symmetry verdict logs its
+        warning.  Elsewhere ``validate_fns`` runs eagerly."""
+        loop, validate = self._loop, self.params.validate_input
+        graphed = loop.graphed()
+        with span("pgf.check_input", graphed=graphed) if validate else contextlib.nullcontext():
+            if not graphed:
+                STARTS["eager"] += 1
+                if validate:
+                    self._validate(x, y)
+                return None
+            start = loop.graphed_start(x, y)
+            if validate:
+                HOST_READS["start"] += 1
+                *finite, symmetric = start.flags.tolist()
+                if not (start.shaped and all(finite)):
+                    STARTS["fallback"] += 1
+                    self._validate(x, y)
+                elif not symmetric:
+                    logger.warning("Hessian not numerically symmetric")
+            return start.it
+
+    def _validate(self, x, y) -> None:
+        try:
+            validate_fns(self.transform.fns, x, y)
+        except EvalError as e:
+            raise Exception("Failed to evaluate initial iterate") from e
 
     def _result(self, state, sol, scalars, timer) -> SolverResult:
         """The ``SolverResult`` of a solve that ended in ``state`` with the

@@ -20,12 +20,13 @@ from .status import RUNNING
 HOST_READS = Counter()
 """Host reads, one count per read, keyed by loop: ``chunk``, the solve
 loop's one read per chunk of ``params.jit_chunk`` iterations (single and
-lockstep), and ``eager``, the per-iteration reads of the loop run without
-a CUDA graph on the card; the inner loops that stop when no lane still
-runs (the box solver, the interior point, MINRES and GMRES, and the
-continuous engine's loops: ``newton``, ``segment``, ``bisect``,
-``device_loop`` and ``flat``, and ``branch``, the reads that skip a branch
-no lane takes)."""
+lockstep), ``start``, a single solve's one read of its input check's
+verdicts on the graphed route, and ``eager``, the per-iteration reads of
+the loop run without a CUDA graph on the card; the inner loops that stop
+when no lane still runs (the box solver, the interior point, MINRES and
+GMRES, and the continuous engine's loops: ``newton``, ``segment``,
+``bisect``, ``device_loop`` and ``flat``, and ``branch``, the reads that
+skip a branch no lane takes)."""
 
 LAUNCH_COUNTERS = []
 """The kernel wrappers' launch counts: dicts of ints whose keys are fixed
@@ -43,13 +44,22 @@ of them), and the part of each already added on the host]."""
 
 
 CAPTURES = Counter()
-"""The process's ``ChunkGraph`` captures: ``graphs`` captured and ``ns``,
-the host time they took, warm-up run included."""
+"""The process's solve-loop captures, a ``ChunkGraph``'s and a single
+solver's start graph (``solver.SolveLoop.graphed_start``): ``graphs``
+captured and ``ns``, the host time they took, warm-up run included."""
 
 REPLAYS = Counter()
 """The process's ``ChunkGraph`` replays: ``bodies``, the graph replays run
 (one loop body each), and ``stopped``, the chunks that ended before their
 ``k`` bodies because a replay's done flag read terminal."""
+
+STARTS = Counter()
+"""The process's single-solve starts (``solver.Solver``): ``graphed``,
+starts evaluated by a replay of the solver's start graph; ``eager``, starts
+evaluated eagerly, on the CPU or on the card's eager route; ``fallback``,
+graphed starts whose input check read a false verdict, or was captured
+with shapes that are not the problem's, so that the eager check ran to
+name the failure."""
 
 LOOKAHEAD = 2
 """Graph replays that ``ChunkGraph.run`` keeps queued ahead of the done
@@ -236,29 +246,37 @@ def _stop_allocating_to(device, pool) -> None:
         pass  # the capture's own end had stopped it
 
 
-def _capture(fn, inputs):
+def _capture(fn, inputs, diagnose=None, what="a function"):
     """``fn(*inputs)`` captured as a CUDA graph after one warm-up run on a
     side stream (``_capturing``'s rules); returns the graph and its output
-    tensors."""
+    tensors.  With ``diagnose``, a capture that fails (not the warm-up)
+    raises ``capture_error``'s :class:`GraphCaptureError` for ``what``,
+    naming ``diagnose()``'s problem function."""
     stream = torch.cuda.Stream(device=inputs[0].device)
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         fn(*inputs)  # warm-up: cuBLAS handles and workspaces outside the capture
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with _capturing(graph, stream, torch.cuda.graph_pool_handle()):
-        outputs = fn(*inputs)
+    try:
+        with _capturing(graph, stream, torch.cuda.graph_pool_handle()):
+            outputs = fn(*inputs)
+    except RuntimeError as err:
+        if diagnose is None:
+            raise
+        raise capture_error(err, diagnose(), what) from err
     return graph, outputs
 
 
-def cuda_graphed(fn, example):
-    """``fn``, a function of a tuple of CUDA tensors that returns a tuple of
-    tensors of the same shapes and reads nothing on the host, captured once
-    as a CUDA graph.  The callable returned copies its arguments into the
-    graph's inputs, replays the graph and returns its output tensors, which
-    the next replay overwrites."""
+def cuda_graphed(fn, example, diagnose=None, what="a function"):
+    """``fn``, a function of a tuple of CUDA tensors that returns a tuple
+    (tree) of tensors and reads nothing on the host, captured once
+    as a CUDA graph (``_capture``, with its ``diagnose`` and ``what``).
+    The callable returned copies its arguments into the graph's inputs,
+    replays the graph and returns its output tensors, which the next replay
+    overwrites."""
     inputs = tuple(t.clone() for t in example)
-    graph, outputs = _capture(fn, inputs)
+    graph, outputs = _capture(fn, inputs, diagnose, what)
 
     def replay(*args):
         for dst, src in zip(inputs, args):
@@ -330,8 +348,22 @@ def _flat(tree):
 
 
 class GraphCaptureError(RuntimeError):
-    """The solve loop's iteration could not be captured as a CUDA graph:
-    something in it reads the host."""
+    """A part of the solve loop (its iteration, or a single solve's start)
+    could not be captured as a CUDA graph: something in it reads the
+    host."""
+
+
+def capture_error(err, name, what) -> GraphCaptureError:
+    """The error of a failed capture of ``what``: it names the problem
+    function ``name`` that reads the host when there is one (None: no
+    problem function was found at fault)."""
+    if name is not None:
+        return GraphCaptureError(
+            f"the problem's {name} reads the host (a Python branch on a tensor, "
+            ".item(), .tolist(), or a copy between host and device memory), so the "
+            f"solve loop cannot run as a CUDA graph: write it as pure tensor code ({err})"
+        )
+    return GraphCaptureError(f"capturing {what} failed: {err}")
 
 
 def replay_until_done(replay, done, k: int, lookahead: int) -> int:
@@ -420,13 +452,7 @@ class ChunkGraph:
                 torch.all(static.status != RUNNING, out=done)
         except RuntimeError as err:
             name = self.diagnose(state) if self.diagnose is not None else None
-            if name is not None:
-                raise GraphCaptureError(
-                    f"the problem's {name} reads the host (a Python branch on a tensor, "
-                    ".item(), .tolist(), or a copy between host and device memory), so the "
-                    f"solve loop cannot run as a CUDA graph: write it as pure tensor code ({err})"
-                ) from err
-            raise GraphCaptureError(f"capturing the solve loop's iteration failed: {err}") from err
+            raise capture_error(err, name, "the solve loop's iteration") from err
 
         entry = {"static": static, "graph": graph, "done": done}
         ns = time.perf_counter_ns() - t0

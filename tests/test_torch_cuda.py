@@ -488,7 +488,9 @@ def test_graphed_loop_equals_eager_loop(cuda, case, batched):
     graphed, eager = make(), _eager(make())
     HOST_READS.clear()
     res = graphed.solve(x0, y0)
-    assert set(HOST_READS) == {"chunk"}
+    # a single solve reads its start's input check once, under validate_input
+    starts = {} if batched or not params.validate_input else {"start": 1}
+    assert dict(HOST_READS, chunk=0) == dict(starts, chunk=0)
     iters = int(res.iterations.max()) if batched else res.iterations
     assert HOST_READS["chunk"] <= -(-(iters + 1) // 8) + 1
     loop = graphed.loop if batched else graphed._loop
@@ -606,6 +608,130 @@ def test_host_reading_problem_raises_on_the_card(cuda):
                                                                          before.num_accepted_steps)
     for field in ("x", "y", "d"):
         assert torch.equal(getattr(after, field), getattr(before, field)), field
+
+
+def test_host_reading_problem_raises_at_the_start_graph(cuda):
+    """Under ``validate_input`` the first graph a solve captures is its
+    start: a problem whose objective branches on a tensor fails there with
+    the error that the loop's graph gives, naming the objective, and no
+    loop graph is captured."""
+    from pygradflow_torch import Problem
+    from pygradflow_torch.util import GraphCaptureError
+
+    class Branching(Problem):
+        def __init__(self):
+            super().__init__(np.full(2, -np.inf), np.full(2, np.inf))
+
+        def obj(self, x):
+            return torch.dot(x, x) if bool(x[0] > 0) else torch.dot(x, x) + 1.0
+
+    solver = Solver(Branching(), Params(validate_input=True), device=cuda)
+    with pytest.raises(GraphCaptureError, match="objective"):
+        solver.solve(np.array([1.0, 1.0]))
+    assert solver._loop.graph.captures == 0
+
+
+def _start_cases(cuda):
+    """(make problem, params, starts): the benchmark's shifted Rosenbrock
+    and its chain at nh = 16, each instance's data overwritten in place
+    (``example_data``), and HS71; each start ``((x0, y0), data)``, data
+    None for a plain problem."""
+    from . import cops_chain as cc
+    from .torch_parity import HS71
+
+    def rosenbrock():
+        config = cc.MANIFEST.config_module("rosenbrock")
+        return config.make_problem(cc.MANIFEST.config_numbers("rosenbrock"), {}, cuda, torch.float64)
+
+    rng = np.random.default_rng(21)
+    rosen = [((rng.uniform(-1.5, 1.5, 2), None), (rng.uniform(-1.0, 1.0, 2),)) for _ in range(3)]
+    hs71 = [((np.array([1.0, 5.0, 5.0, 1.0, 0.0]) + 0.1 * k, np.zeros(2)), None) for k in range(2)]
+    chains = [((x0, None), (delta,)) for delta, x0 in cc.instances(cc.problem(16), 23, 2)]
+    return {
+        "rosenbrock": (rosenbrock, Params(), rosen),
+        "hs71": (lambda: HS71(), Params(), hs71),
+        "cops-chain-nh16": (lambda: cc.problem(16, cuda), cc.params(), chains),
+    }
+
+
+def _pose(problem, data):
+    """Overwrite a parametric problem's data in place with ``data``."""
+    for buf, value in zip(getattr(problem, "example_data", ()), data or ()):
+        buf.copy_(torch.as_tensor(value, dtype=buf.dtype, device=buf.device))
+
+
+@pytest.mark.parametrize("case", ["rosenbrock", "hs71", "cops-chain-nh16"])
+def test_graphed_start_equals_eager_start(cuda, case):
+    """A solve whose start is one replay of the start graph gives the eager
+    route's solve bit for bit, call after call on instances overwritten in
+    place; the first solve captures the start graph and the loop's, every
+    later one captures none and replays the start once."""
+    from pygradflow_torch.util import CAPTURES, HOST_READS, STARTS
+
+    make, params, starts = _start_cases(cuda)[case]
+    prob_g, prob_e = make(), make()
+    graphed = Solver(prob_g, params, device=cuda)
+    eager = _eager(Solver(prob_e, params, device=cuda))
+    for call, ((x0, y0), data) in enumerate(starts):
+        _pose(prob_g, data)
+        _pose(prob_e, data)
+        counts, graphs, reads = dict(STARTS), CAPTURES["graphs"], HOST_READS["start"]
+        res = graphed.solve(x0, y0)
+        assert STARTS["graphed"] - counts.get("graphed", 0) == 1
+        assert CAPTURES["graphs"] - graphs == (2 if call == 0 else 0)
+        assert graphed._loop.graph.captures == 1 and HOST_READS["start"] - reads == 1
+        ref = eager.solve(x0, y0)
+        assert STARTS["eager"] - counts.get("eager", 0) == 1 and STARTS["fallback"] == counts.get("fallback", 0)
+        assert res.status.name == "Optimal"
+        assert (res.status, res.iterations, res.num_accepted_steps) == (ref.status, ref.iterations,
+                                                                         ref.num_accepted_steps)
+        assert res.num_evals == ref.num_evals
+        for field in ("x", "y", "d"):
+            assert torch.equal(getattr(res, field), getattr(ref, field)), field
+
+
+def test_nan_start_on_the_graphed_route_raises_then_solves(cuda):
+    """A NaN in the start, on the graphed route, raises the eager check's
+    error through the fallback; the same solver then solves a sound start
+    to the eager route's bits, without a new capture."""
+    from pygradflow_torch.eval import EvalError
+    from pygradflow_torch.util import STARTS
+
+    from .torch_parity import HS71
+
+    x0, y0 = np.array([1.0, 5.0, 5.0, 1.0, 0.0]), np.zeros(2)
+    solver = Solver(HS71(), Params(), device=cuda)
+    fallback = STARTS["fallback"]
+    with pytest.raises(Exception, match="Failed to evaluate initial iterate") as err:
+        solver.solve(np.array([1.0, 5.0, np.nan, 1.0, 0.0]), y0)
+    assert isinstance(err.value.__cause__, EvalError) and str(err.value.__cause__) == "Infinite objective"
+    assert STARTS["fallback"] - fallback == 1
+    res = solver.solve(x0, y0)
+    ref = _eager(Solver(HS71(), Params(), device=cuda)).solve(x0, y0)
+    assert solver._loop.graph.captures == 1 and STARTS["fallback"] - fallback == 1
+    assert (res.status, res.iterations, res.num_accepted_steps) == (ref.status, ref.iterations,
+                                                                     ref.num_accepted_steps)
+    for field in ("x", "y", "d"):
+        assert torch.equal(getattr(res, field), getattr(ref, field)), field
+
+
+def test_check_input_span_is_graphed_on_the_card(cuda):
+    """On the card's graphed route ``pgf.check_input`` stays a child of
+    ``pgf.prepare`` and carries ``graphed`` true; on the eager route false."""
+    from torch.profiler import profile
+
+    from .torch_parity import Rosenbrock
+
+    for solver, graphed in ((Solver(Rosenbrock(), Params(), device=cuda), True),
+                            (_eager(Solver(Rosenbrock(), Params(), device=cuda)), False)):
+        solver.solve(np.zeros(2))
+        util.SPANS.clear()
+        with profile():
+            solver.solve(np.zeros(2))
+        (prepare,) = [sp for sp in util.SPANS if sp.name == "pgf.prepare"]
+        (check,) = [sp for sp in util.SPANS if sp.name == "pgf.check_input"]
+        assert check.parent == prepare.index and check.attrs == {"graphed": graphed}
+        util.SPANS.clear()
 
 
 def test_launches_counted_after_a_first_graph_without_kernels(cuda):

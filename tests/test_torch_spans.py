@@ -2,8 +2,9 @@
 
 The solve drivers record a span at each layer boundary only while a
 ``torch.profiler`` records: ``pgf.prepare`` (with ``pgf.check_input``
-inside), one ``pgf.chunk`` and one ``pgf.wait`` per chunk, ``pgf.compact``
-per tier change of a compacting batch, and ``pgf.finish``.  Without a
+inside, whose ``graphed`` says whether the start was a graph replay), one
+``pgf.chunk`` and one ``pgf.wait`` per chunk, ``pgf.compact`` per tier
+change of a compacting batch, and ``pgf.finish``.  Without a
 profiler a span site returns one shared null context and records nothing;
 with one, the answers are the same bits.
 """
@@ -94,6 +95,7 @@ def test_single_solve_spans(jit_chunk, chunks):
     assert [sp.name for sp in top] == ["pgf.prepare"] + ["pgf.chunk", "pgf.wait"] * chunks + ["pgf.finish"]
     (check,) = [sp for sp in spans if sp.parent != -1]
     assert check.name == "pgf.check_input" and check.parent == top[0].index
+    assert check.attrs == {"graphed": False}  # on the CPU the input check runs eagerly
     assert top[0].start_ns <= check.start_ns <= check.end_ns <= top[0].end_ns
     for sp in top:
         assert sp.start_ns <= sp.end_ns
