@@ -2692,9 +2692,9 @@ def surface_phase(card, parity=None):
 
 # phase 14: the solve loop on the device.  Each configuration runs its
 # solve through the graphed chunk (the route of Params on the card) and
-# through the eager chunk (SolveLoop.eager_chunk / LaneLoop.eager_chunk,
-# the loop's per-iteration read), in turns, from the same start: the two
-# must give the same bits, the graphed solve one host read per chunk.
+# through the eager chunk (the loop's use_graphs set false; the loop's
+# per-iteration read), in turns, from the same start: the two must give
+# the same bits, the graphed solve one host read per chunk.
 LOOP_CHUNK_N = 128  # the single pendulum of B1'; B3' at N=256
 LOOP_OPTIONS = ["Full", "ActiveSet", "FixedActiveSet", "Globalized", "Exact", "ResiduumRatio", "Fixed",
                 "Constant", "DualEquilibration", "ParetoDecrease", "ObjectiveFilter", "LagrangianFilter"]
@@ -2760,7 +2760,7 @@ def _loops(solver):
 def _make_eager(solver):
     """Send every chunk of ``solver`` through the eager loop."""
     for loop in _loops(solver):
-        loop.chunk_route = lambda loop=loop: loop.eager_chunk
+        loop.use_graphs = False
     return solver
 
 
@@ -2836,7 +2836,7 @@ def loop_phase(card):
     from pygradflow_torch import Solver
     from pygradflow_torch.linalg import ldlt_kernels as lk
     from pygradflow_torch.parallel import BatchedSolver, MixedPrecisionSolver
-    from pygradflow_torch.util import HOST_READS
+    from pygradflow_torch.util import CAPTURES, HOST_READS
 
     totals = dict.fromkeys(lk.LAUNCHES, 0)
     rows = {}
@@ -2860,6 +2860,7 @@ def loop_phase(card):
                 lk.LAUNCHES.update(dict.fromkeys(lk.LAUNCHES, 0))
                 HOST_READS.clear()
                 captures = sum(loop.graph.captures for loop in _loops(solver))
+                capture_ns = CAPTURES["ns"]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 res = solver.solve(x0, y0) if kind == "single" else solver.solve(x0)
@@ -2885,7 +2886,7 @@ def loop_phase(card):
                 if turn == 0:
                     entry["first"] = wall
                     entry["captures"] = new_captures
-                    entry["capture_s"] = sum(loop.graph.capture_seconds for loop in _loops(solver))
+                    entry["capture_s"] = (CAPTURES["ns"] - capture_ns) * 1e-9
                     for key in totals:
                         totals[key] += lk.LAUNCHES[key] if route == "graphed" else 0
                 results[route] = res
@@ -2949,7 +2950,7 @@ def host_reading_problem_check():
     from pygradflow_torch import Params, Problem, Solver
     from pygradflow_torch.runners.hs import HS_BY_NAME
     from pygradflow_torch.runners.hs_runner import HSInstance
-    from pygradflow_torch.util import GraphCaptureError
+    from pygradflow_torch.graphs import GraphCaptureError
 
     class Branching(Problem):
         def __init__(self):

@@ -4,10 +4,11 @@ ported to PyTorch and CUDA.
 The JAX package ``pygradflow_tpu`` is the reference; this package keeps its
 module names and its decisions, with plain torch functions on float64
 tensors (float32 under ``Precision.Single``), ``torch.func`` derivatives,
-an eager solve loop, and hand-written CUDA kernels where the JAX package
-has TPU kernels.  It imports no JAX and
-changes no global torch setting: every tensor gets an explicit dtype and the
-device chosen at ``Solver`` construction.
+a solve loop whose body replays as a CUDA graph on the card (``graphs.py``;
+eager on the CPU), and hand-written CUDA kernels where the JAX package has
+TPU kernels.  It imports no JAX and changes no global torch setting: every
+tensor gets an explicit dtype and the device chosen at ``Solver``
+construction.
 """
 
 from .params import (  # noqa: F401

@@ -3,8 +3,8 @@
 
 The loop state is small (iterate, lambda, rho, PI sum, penalty state,
 counters), so a checkpoint is one ``.npz`` snapshot, written at the chunk
-boundaries of ``SolveLoop.run``; a solve resumed from it goes on bit for bit
-as the uninterrupted one.
+boundaries of ``SolveLoop.run_chunks``; a solve resumed from it goes on bit
+for bit as the uninterrupted one.
 
 The format is the JAX package's, so that a snapshot of either package
 resumes in this one: each leaf is keyed by its field path in the JAX

@@ -55,12 +55,10 @@ class Counters(NamedTuple):
     lag_hess: int = 0
 
     @staticmethod
-    def zero(device="cpu"):
-        return Counters(*(torch.zeros((), dtype=torch.int64, device=device) for _ in range(5)))
-
-    @staticmethod
-    def zero_lanes(batch: int, device):
-        return Counters(*(torch.zeros(batch, dtype=torch.int64, device=device) for _ in range(5)))
+    def zero(device="cpu", lead=()):
+        """Zero counts of shape ``lead``: () for one instance, (B,) for a
+        lane stack."""
+        return Counters(*(torch.zeros(lead, dtype=torch.int64, device=device) for _ in range(5)))
 
     def add(self, *, obj=0, obj_grad=0, cons=0, cons_jac=0, lag_hess=0):
         return Counters(

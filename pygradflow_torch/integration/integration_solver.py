@@ -37,7 +37,7 @@ from ..iterate import bounds_dual, evaluate_iterate, is_feasible, locally_infeas
 from ..log import logger
 from ..params import Params
 from ..result import SolverResult
-from ..solver import _resolve_device
+from ..solver import resolve_device
 from ..status import RUNNING, SolverStatus  # noqa: F401
 from ..timer import Timer
 from ..transform import Transformation
@@ -60,7 +60,7 @@ class IntegrationSolver:
             params = Params()
         self.orig_problem = problem
         self.params = params
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.every = integrator.READ_EVERY
 
         self.transform = Transformation(problem, params, self.device)

@@ -27,9 +27,10 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..graphs import GraphPair
 from ..linalg.plu import plu_factor, plu_solve
 from ..params import IntegrationMethod
-from ..util import GraphPair, any_running, lanes, masked_while, rowsum, select
+from ..util import any_running, lanes, masked_while, rowsum, select
 from . import events as ev
 from . import flow as fl
 
@@ -420,7 +421,7 @@ def _any_of(masks, like):
 
 
 def graph_pair(fn, loop):
-    """``fn(*tensors, every, escalate)`` as a ``util.GraphPair`` with no host
+    """``fn(*tensors, every, escalate)`` as a ``graphs.GraphPair`` with no host
     read inside: the full graph runs every loop to its full trip count, the
     fast one runs each Newton solve for ``FAST_NEWTON_TRIPS`` iterations
     without the stage escalation, and flags the lanes where that is not the

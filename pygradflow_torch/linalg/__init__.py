@@ -50,7 +50,7 @@ class LinearSolver(NamedTuple):
 
 # Size limits of the reference tiers, kept so that every KKT size reaches
 # the same algorithm as in the JAX package.  They came from TPU VMEM and
-# Mosaic limits; re-deriving them for the H100 is later work (ROADMAP A8).
+# Mosaic limits; re-deriving them for the H100 is later work (ROADMAP F4).
 PALLAS_MAX_N = 1280
 PALLAS_HBM_MAX_N = 2048
 PANEL_BATCH_MIN_N = 512

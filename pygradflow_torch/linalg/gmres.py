@@ -27,7 +27,8 @@ bit.
 
 import torch
 
-from ..util import any_running, cuda_graphed, lanes, matvec
+from ..graphs import cuda_graphed
+from ..util import any_running, lanes, matvec
 
 GRAPH_RESTARTS = 8
 """Restarts between two host reads on a CUDA device, replayed as one CUDA

@@ -9,28 +9,33 @@ decision is a per-lane ``torch.where``.  ``torch.func.vmap`` serves only the
 problem's derivatives (``eval.lane_fns``).  Lanes are independent: a lane's
 trajectory does not depend on the others or on the batch width.
 
-One lockstep iteration (``LaneLoop.body``) reads nothing on the host: Exact
-step control and Globalized Newton run their inner loops to the limit.  A
-chunk runs up to ``params.jit_chunk`` bodies and the host reads the status
-vector once per chunk (``LaneLoop.read``, ``util.HOST_READS["chunk"]``), as
-the JAX package's ``_run_chunk`` does.  On the card the body is a CUDA
-graph (``util.ChunkGraph``), captured at the first use of each width and
-replayed up to ``jit_chunk`` times per chunk, stopped soon after every lane
-is terminal (a lane whose status is terminal passes through a replay
-unchanged); on the CPU, or for a configuration in
-``solver.EAGER_ON_CARD``, the same body runs eagerly, checking before each
-iteration whether a lane still runs (on the card one host read each,
-``HOST_READS["eager"]``).  The inner loops of BoxReduced and Optimizing
-(the box solver's iterations, the interior point's), MINRES's iterations
-and GMRES's restarts end when no lane still runs, read on the host once
-per iteration (MINRES: every ``minres.CHECK_EVERY``), where the JAX
-package's vmapped ``lax.while_loop`` decides on the device; these keep the
-eager loop.  A lane that has left such a loop keeps its values bit for
-bit.  A lane whose status is terminal is frozen: it keeps computing in
-lockstep, and its result is discarded.  ``compact`` harvests terminated
-lanes at chunk boundaries and re-packs the running remainder into
-power-of-four width tiers (``_solve_compacting``), so stragglers run at
-straggler width; each tier has a graph of its own.
+``LaneLoop`` is ``solver.ChunkLoop`` over a lane stack: its terminal
+tests, step core, route and chunk with the one host read are the single
+loop's, on a ``solver.LoopState`` whose tensors carry the lane axis (no
+``eval_fail`` record, no path).  It adds the lockstep body (the iteration,
+then the terminal tests), the per-width closures over the lanes' data
+(``bind``) and the finalizer.  One lockstep iteration reads nothing on the
+host: Exact step control and Globalized Newton run their inner loops to
+the limit.  A chunk runs up to ``params.jit_chunk`` bodies and the host
+reads the status vector once per chunk (``LaneLoop.read``,
+``util.HOST_READS["chunk"]``), as the JAX package's ``_run_chunk`` does.
+On the card the body is a CUDA graph (``graphs.ChunkGraph``), captured at
+the first use of each width and replayed up to ``jit_chunk`` times per
+chunk, stopped soon after every lane is terminal (a lane whose status is
+terminal passes through a replay unchanged); on the CPU, or for a
+configuration in ``solver.EAGER_ON_CARD``, the same body runs eagerly,
+checking before each iteration whether a lane still runs (on the card one
+host read each, ``HOST_READS["eager"]``).  The inner loops of BoxReduced
+and Optimizing (the box solver's iterations, the interior point's),
+MINRES's iterations and GMRES's restarts end when no lane still runs, read
+on the host once per iteration (MINRES: every ``minres.CHECK_EVERY``),
+where the JAX package's vmapped ``lax.while_loop`` decides on the device;
+these keep the eager loop.  A lane that has left such a loop keeps its
+values bit for bit.  A lane whose status is terminal is frozen: it keeps
+computing in lockstep, and its result is discarded.  ``compact`` harvests
+terminated lanes at chunk boundaries and re-packs the running remainder
+into power-of-four width tiers (``_solve_compacting``), so stragglers run
+at straggler width; each tier has a graph of its own.
 """
 
 from typing import Any, NamedTuple, Optional
@@ -41,25 +46,21 @@ from torch.func import vmap
 
 from ..eval import Counters, lane_fns
 from ..iterate import (
-    Iterate,
     bounds_dual,
     cons_violation,
     evaluate_iterate,
-    is_feasible,
-    iterate_eval_counts,
-    locally_infeasible,
     stat_res,
     total_res,
 )
 from ..params import Params
 from ..penalty import penalty_strategy
 from ..problem import Problem
-from ..solver import _clone_tree, _diagnose, _resolve_device, graph_route
+from ..solver import ChunkLoop, LoopState, resolve_device
 from ..status import RUNNING, SolverStatus
-from ..step.control import compute_step, make_control_cfg, make_controller
+from ..step.control import make_control_cfg, make_controller
 from ..timer import Timer
 from ..transform import Transformation
-from ..util import HOST_READS, ChunkGraph, add_device_launches, begin_call, device_launches, select, span, tree_map
+from ..util import begin_call, select, span, tree_map
 
 
 class ParametricProblem(Problem):
@@ -111,40 +112,15 @@ class BatchResult(NamedTuple):
         return self.status == int(SolverStatus.Optimal)
 
 
-class LaneState(NamedTuple):
-    it: Iterate
-    lamb: Any
-    rho: Any
-    error_sum: Any
-    pstate: Any
-    iteration: Any
-    accepted_steps: Any
-    num_penalty_changes: Any
-    path_dist: Any
-    status: Any
-    counters: Counters
-    rcond: Any
-
-
-class LaneLoop:
-    """The solve loop over a lane stack, for one (problem, params) pair.
-    The decisions are those of ``solver.SolveLoop``, taken per lane."""
+class LaneLoop(ChunkLoop):
+    """The solve loop over a lane stack, for one (problem, params) pair:
+    ``solver.ChunkLoop``'s decisions, taken per lane, on a ``LoopState``
+    whose tensors carry a lane axis, with no ``eval_fail`` and no path."""
 
     def __init__(self, transform: Transformation, params: Params, device):
-        self.transform = transform
-        self.params = params
-        problem = transform.trans_problem
-        self.m = problem.num_cons
-        self.device = device
-        self.lb = torch.as_tensor(problem.var_lb, dtype=params.dtype, device=device)
-        self.ub = torch.as_tensor(problem.var_ub, dtype=params.dtype, device=device)
-        if params.iteration_limit is not None:
-            self.iteration_limit = int(params.iteration_limit)
-        else:
-            self.iteration_limit = int(params.iteration_limit_default)
+        super().__init__(transform, params, device)
         self._bound = {}
         self.bind(None)
-        self.graph = ChunkGraph(self.body, lambda s, fns=transform.fns: _diagnose(fns, s.it.x[0], s.it.y[0]))
 
     def bind(self, data):
         """Point the lane closures at the data of the lanes now in the stack
@@ -165,84 +141,11 @@ class LaneLoop:
                     dst.copy_(src)
         _, self.fns, self.cfg, self.controller, (self.penalty_initial, self.penalty_update) = bound
 
-    def init_state(self, x, y) -> LaneState:
-        params = self.params
-        batch = x.shape[0]
-
-        def full(value, dtype=params.dtype):
-            return torch.full((batch,), value, dtype=dtype, device=x.device)
-
-        rho0, pstate0 = self.penalty_initial(batch)
-        zero = full(0, torch.int64)
-        counters = Counters.zero_lanes(batch, x.device).add(**iterate_eval_counts(self.m))
-        state = LaneState(
-            it=evaluate_iterate(self.fns, x, y),
-            lamb=full(params.lamb_init),
-            rho=full(rho0),
-            error_sum=full(0.0),
-            pstate=pstate0,
-            iteration=zero,
-            accepted_steps=zero,
-            num_penalty_changes=zero,
-            path_dist=full(0.0),
-            status=full(RUNNING, torch.int64),
-            counters=counters,
-            rcond=full(float("nan")),
-        )
+    def init_state(self, x, y) -> LoopState:
+        state = self.new_state(evaluate_iterate(self.fns, x, y), (x.shape[0],))
         return state._replace(status=self.check_terminate(state))
 
-    def check_terminate(self, state: LaneState):
-        """Per-lane termination in the reference's priority: a later test
-        overrides an earlier one (``SolveLoop.check_terminate``)."""
-        params = self.params
-        it = state.it
-        lb, ub = self.lb, self.ub
-        unbounded = (it.obj <= params.obj_lower_limit) & is_feasible(it, lb, ub, params.opt_tol)
-        infeas = locally_infeasible(
-            it, lb, ub, params.active_tol, params.opt_tol, params.local_infeas_tol, self.fns
-        )
-        optimal = total_res(it, lb, ub, params.active_tol, self.fns) <= params.opt_tol
-        status = torch.full_like(state.status, RUNNING)
-        status = torch.where(unbounded, int(SolverStatus.Unbounded), status)
-        status = torch.where(infeas, int(SolverStatus.LocallyInfeasible), status)
-        status = torch.where(optimal, int(SolverStatus.Optimal), status)
-        return torch.where(
-            state.iteration >= self.iteration_limit, int(SolverStatus.IterationLimit), status
-        )
-
-    def run_iteration(self, state: LaneState) -> LaneState:
-        """One outer iteration on every lane (``SolveLoop.run_iteration``)."""
-        ctrl = compute_step(
-            self.cfg, self.controller, state.it, state.lamb, state.rho,
-            state.error_sum, state.counters,
-        ).ctrl
-        next_it = ctrl.iterate
-        step_norm = torch.linalg.vector_norm(next_it.x - state.it.x, dim=-1) + torch.linalg.vector_norm(
-            next_it.y - state.it.y, dim=-1
-        )
-        # the penalty update runs on every candidate, applies only to
-        # accepted steps and can veto them (reference solver.py:357-369)
-        pres = self.penalty_update(state.it, next_it, state.rho, state.pstate)
-        accept = ctrl.accepted & pres.accept
-        rho_n = torch.where(accept, pres.rho, state.rho)
-        lambda_limit = ctrl.lamb >= self.params.lamb_max
-        rcond = ctrl.rcond if torch.is_tensor(ctrl.rcond) else torch.full_like(state.rcond, ctrl.rcond)
-        return LaneState(
-            it=select(accept, next_it, state.it),
-            lamb=ctrl.lamb,
-            rho=rho_n,
-            error_sum=ctrl.error_sum,
-            pstate=select(ctrl.accepted, pres.state, state.pstate),
-            iteration=state.iteration + 1,
-            accepted_steps=state.accepted_steps + accept,
-            num_penalty_changes=state.num_penalty_changes + (accept & (rho_n != state.rho)),
-            path_dist=state.path_dist + torch.where(accept, step_norm, 0.0),
-            status=torch.where(lambda_limit, int(SolverStatus.LambdaLimit), RUNNING),
-            counters=ctrl.counters,
-            rcond=rcond,
-        )
-
-    def body(self, state: LaneState) -> LaneState:
+    def body(self, state: LoopState) -> LoopState:
         """One iteration on every lane, then the terminal tests on the new
         state; lanes that were terminal keep theirs.  The single loop tests
         at the start of the next iteration, which decides the same."""
@@ -250,63 +153,9 @@ class LaneLoop:
         status = torch.where(new.status == RUNNING, self.check_terminate(new), new.status)
         return select(state.status == RUNNING, new._replace(status=status), state)
 
-    def eager_chunk(self, state: LaneState, k: int) -> LaneState:
-        """Up to ``k`` bodies run eagerly while a lane runs: on the CPU the
-        status is in host memory, on the card each check is a host read
-        (``HOST_READS["eager"]``)."""
-        for _ in range(k):
-            if state.status.device.type != "cpu":
-                HOST_READS["eager"] += 1
-            if not bool(torch.any(state.status == RUNNING)):
-                break
-            state = self.body(state)
-        return state
-
-    def graphed_chunk(self, state: LaneState, k: int) -> LaneState:
-        """Up to ``k`` bodies replayed as the CUDA graph of this width,
-        stopped soon after every lane is terminal (``util.ChunkGraph.run``),
-        a terminal lane unchanged by them; no blocking read of the state."""
-        return self.graph.run(state, k)
-
-    def chunk_route(self):
-        """The chunk runner, decided from ``params`` before the solve: the
-        graph on the card unless the configuration is in
-        ``solver.EAGER_ON_CARD``."""
-        if self.device.type == "cuda" and graph_route(self.params, problem=self.transform.orig_problem) is None:
-            return self.graphed_chunk
-        return self.eager_chunk
-
-    def run_chunk(self, state: LaneState, chunk: int) -> LaneState:
-        """At most ``chunk`` iterations while a lane runs, through the
-        route of ``chunk_route``; no blocking read.  The span's ``bodies``
-        is, on the graphed route, the bodies replayed."""
-        route = self.chunk_route()
-        with span("pgf.chunk", width=state.status.shape[0], bodies=chunk) as attrs:
-            state = route(state, chunk)
-            if attrs is not None and route == self.graphed_chunk:
-                attrs["bodies"] = self.graph.replayed
-            return state
-
-    def read(self, state: LaneState):
-        """The status vector on the host (numpy): the one host read per
-        chunk.  On the graphed route it carries the kernel launches that the
-        chunk's bodies counted on the device (``util.add_device_launches``)."""
-        HOST_READS["chunk"] += 1
-        if self.chunk_route() != self.graphed_chunk:
-            with span("pgf.wait"):
-                return state.status.cpu().numpy()
-        device = state.status.device
-        launches = device_launches(device)
-        packed = torch.cat([state.status, launches])
-        with span("pgf.wait"):
-            packed = packed.cpu().numpy()
-        lanes = state.status.numel()
-        add_device_launches(device, packed[lanes:])
-        return packed[:lanes]
-
-    def finalize(self, state: LaneState):
+    def finalize(self, state: LoopState):
         params = self.params
-        state = _clone_tree(state)  # a graph's buffers: the next solve overwrites them
+        state = self.copy_out(state)
         it = state.it
         d = bounds_dual(it, self.lb, self.ub, params.active_tol, self.fns)
         x, y, d = self.transform.restore_sol(it.x, it.y, d)
@@ -325,7 +174,7 @@ class LaneLoop:
         )
 
 
-def _time_out(state: LaneState) -> LaneState:
+def time_out(state: LoopState) -> LoopState:
     status = torch.where(state.status == RUNNING, int(SolverStatus.TimeLimit), state.status)
     return state._replace(status=status)
 
@@ -363,7 +212,7 @@ class BatchedSolver:
             raise ValueError("collect_path is not supported in batched mode")
         self.orig_problem = problem
         self.params = params
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.transform = Transformation(problem, params, self.device)
         self.loop = LaneLoop(self.transform, params, self.device)
         self.parametric = isinstance(problem, ParametricProblem)
@@ -403,6 +252,7 @@ class BatchedSolver:
         loop = self.loop
         begin_call()
         with span("pgf.prepare"):
+            loop.decide_route()
             data = self._data(data)
             x, y = self._initial(x0, y0, data)
             if self.parametric:
@@ -417,18 +267,18 @@ class BatchedSolver:
             state = self._solve_compacting(state, data, timer)
         else:
             while True:
-                state = loop.run_chunk(state, params.jit_chunk)
-                if not (loop.read(state) == RUNNING).any():
+                state, _, pending = loop.run_chunk(state, params.jit_chunk)
+                if not (loop.read(pending) == RUNNING).any():
                     break
                 if timer.reached_time_limit():
-                    state = _time_out(state)
+                    state = time_out(state)
                     break
         with span("pgf.finish"):
             if compact and self.parametric:  # finalize reads every lane's data again
                 loop.bind(data)
             return loop.finalize(state)
 
-    def _solve_compacting(self, state: LaneState, data, timer) -> LaneState:
+    def _solve_compacting(self, state: LoopState, data, timer) -> LoopState:
         """Chunked solve with lane harvesting and width compaction
         (reference ``batch.py:263-347``).
 
@@ -460,8 +310,8 @@ class BatchedSolver:
             return tree_map(put, archive, state)
 
         while True:
-            state = loop.run_chunk(state, chunk)
-            running = loop.read(state)[: active.size] == RUNNING
+            state, _, pending = loop.run_chunk(state, chunk)
+            running = loop.read(pending)[: active.size] == RUNNING
             timed_out = timer.reached_time_limit()
             if timed_out or not running.any():
                 break
@@ -491,4 +341,4 @@ class BatchedSolver:
         if shrunk:
             with span("pgf.compact", width=state.status.shape[0], new_width=batch):
                 state = scatter(archive, state, orig_idx)
-        return _time_out(state) if timed_out else state
+        return time_out(state) if timed_out else state

@@ -29,7 +29,7 @@ import torch.distributed as dist
 from ..params import Params
 from ..problem import Problem
 from ..timer import Timer
-from .batch import BatchResult, _time_out
+from .batch import BatchResult, time_out
 from .shard import ShardedSolver
 
 _LOCAL_IDS = None  # CUDA indices of this process's mesh, set by init_distributed
@@ -58,11 +58,11 @@ def local_mesh() -> list:
     """This process's devices: those given to ``init_distributed`` as
     ``local_device_ids``, else the current CUDA device.  Raises, as the
     entry points do, without a card (CPU use passes ``mesh=["cpu"]``)."""
-    from ..solver import _resolve_device
+    from ..solver import resolve_device
 
     if _LOCAL_IDS is not None:
         return [torch.device("cuda", i) for i in _LOCAL_IDS]
-    return [_resolve_device(None)]
+    return [resolve_device(None)]
 
 
 def init_distributed(
@@ -168,8 +168,8 @@ class DistributedSolver(ShardedSolver):
         timer = Timer(self.params.time_limit)
         has_time_limit = math.isfinite(self.params.time_limit)
         while True:
-            states = self._chunk(states)
-            running = torch.tensor([self._local_running(states)], dtype=torch.int64, device=comm)
+            states, running = self._chunk(states)
+            running = torch.tensor([running], dtype=torch.int64, device=comm)
             dist.all_reduce(running)
             if int(running) == 0:
                 break
@@ -179,7 +179,7 @@ class DistributedSolver(ShardedSolver):
                 dist.broadcast(verdict, src=0)
                 timed_out = bool(verdict)
             if timed_out:
-                states = [_time_out(s) for s in states]
+                states = [time_out(s) for s in states]
                 break
 
         return _all_gather_tree(self._finalize(states), world, comm, self.mesh[0])

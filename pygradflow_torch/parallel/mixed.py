@@ -19,7 +19,7 @@ import torch
 
 from ..params import Params, Precision
 from ..problem import Problem
-from ..solver import _resolve_device
+from ..solver import resolve_device
 from .batch import BatchedSolver, BatchResult
 
 
@@ -48,7 +48,7 @@ class MixedPrecisionSolver:
         if params.precision != Precision.Double:
             raise ValueError("MixedPrecisionSolver polishes in f64; pass f64 target params")
         self.params = params
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         p32 = replace(
             params,
             precision=Precision.Single,

@@ -26,22 +26,22 @@ import torch
 
 from ..params import Params
 from ..problem import Problem
-from ..solver import _resolve_device
+from ..solver import resolve_device
 from ..status import RUNNING
 from ..timer import Timer
-from .batch import BatchedSolver, BatchResult, LaneLoop, _time_out
+from .batch import BatchedSolver, BatchResult, LaneLoop, time_out
 
 
 def default_mesh():
     """Every visible CUDA device; raises, as the entry points do, when there
     is none (CPU use passes a mesh such as ``["cpu"] * 4``)."""
     if not torch.cuda.is_available():
-        _resolve_device(None)
+        resolve_device(None)
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def resolve_mesh(mesh) -> list:
-    return [_resolve_device(d) for d in (default_mesh() if mesh is None else mesh)]
+    return [resolve_device(d) for d in (default_mesh() if mesh is None else mesh)]
 
 
 def concat_lanes(parts, device):
@@ -123,19 +123,19 @@ class ShardedSolver:
             data_k = solver._data(None if data is None else tuple(a[r] for a in data))
             x, y = solver._initial(x0[r], None if y0 is None else y0[r], data_k)
             loop = self._loop(k)
+            loop.decide_route()
             if self.parametric:
                 loop.bind(data_k)
             states.append(loop.init_state(x, y))
         return states
 
     def _chunk(self, states):
+        """A chunk on every shard, and the running lanes over the shards:
+        the host's vote, one read of each shard's status (``LaneLoop.read``)."""
         chunk = self.params.jit_chunk
-        return run_per_device(self.mesh, lambda k, s: self._loop(k).run_chunk(s, chunk), states)
-
-    def _local_running(self, states) -> int:
-        """The running lanes over the shards: the host's vote, one read of
-        each shard's status per chunk (``LaneLoop.read``)."""
-        return sum(int((self._loop(k).read(s) == RUNNING).sum()) for k, s in enumerate(states))
+        chunks = run_per_device(self.mesh, lambda k, s: self._loop(k).run_chunk(s, chunk), states)
+        reads = [self._loop(k).read(pending) for k, (_, _, pending) in enumerate(chunks)]
+        return [state for state, _, _ in chunks], sum(int((r == RUNNING).sum()) for r in reads)
 
     def _finalize(self, states) -> BatchResult:
         # each shard's loop is still bound to that shard's data
@@ -149,10 +149,10 @@ class ShardedSolver:
         states = self._init_shards(x0, y0, data)
         timer = Timer(self.params.time_limit)
         while True:
-            states = self._chunk(states)
-            if self._local_running(states) == 0:
+            states, running = self._chunk(states)
+            if running == 0:
                 break
             if timer.reached_time_limit():
-                states = [_time_out(s) for s in states]
+                states = [time_out(s) for s in states]
                 break
         return self._finalize(states)

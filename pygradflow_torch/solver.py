@@ -4,27 +4,31 @@
 As in the JAX package, the loop state is a small tree of tensors on the
 solver's device (``LoopState``): the iterate, and lambda, rho, the PI sum,
 the path length and the rcond estimate as 0-dim tensors of
-``params.dtype``, the counts and the status as 0-dim int64 tensors.  One
-iteration (``SolveLoop.body``) is the JAX body: the terminal tests in the
-reference's priority (``check_terminate``), then one step with its penalty
-update and veto (``run_iteration``), every decision a ``torch.where``; a
-terminal state passes through unchanged.  The body reads nothing on the
-host.
+``params.dtype``, the counts and the status as 0-dim int64 tensors; the
+lockstep loop (``parallel/batch.py``) gives each a lane axis.
 
-``SolveLoop.run_fused`` runs the body in chunks of ``params.jit_chunk``
-and reads the host once per chunk (``util.HOST_READS["chunk"]``): the
-status, the counts and the final residuals in one packed vector, the
-finalizer fused into the read as in the JAX package's ``run_fused``.  The
-time limit is checked there, and a ``checkpoint.CheckpointManager`` writes
-its snapshot.  On the card a chunk replays the body as a CUDA graph
-(``util.ChunkGraph``), captured once per solver, up to ``jit_chunk``
-times and stopped soon after the status is terminal: the counterpart of
-the JAX package's ``lax.while_loop``.  On the CPU, or for a configuration in
+``ChunkLoop`` is what both loops share: the terminal tests in the
+reference's priority (``check_terminate``), the step core with its penalty
+update and veto (``step``), every decision a ``torch.where``; the route of
+a solve call, decided at its start (``decide_route``); and a chunk of up
+to ``params.jit_chunk`` bodies with its one host read (``run_chunk``,
+``read``; ``util.HOST_READS["chunk"]``).  On the card the chunk replays
+the body as a CUDA graph (``graphs.ChunkGraph``), stopped soon after the
+status is terminal: the counterpart of the JAX package's
+``lax.while_loop``.  On the CPU, or for a configuration in
 ``EAGER_ON_CARD``, the same body runs eagerly, checking the status before
 each iteration: on the CPU that is no device read, on the card one
-(``HOST_READS["eager"]``).  ``graph_route`` decides before the solve.
-On the graphed route a solve's start is a CUDA graph too
-(``SolveLoop.graphed_start``): the start iterate and, under
+(``HOST_READS["eager"]``).  A body reads nothing on the host.
+
+``SolveLoop`` adds the JAX body's order (the terminal tests, then one
+iteration unless they end the solve; a terminal state passes through
+unchanged), the ``eval_fail`` record, the path ring, the callbacks and the
+display rows (``run_iteration``), and ``run_chunks``, whose read is the
+status, the counts and the final residuals in one packed vector, the
+finalizer fused into the read as in the JAX package's fused driver; the
+time limit is checked there, and a ``checkpoint.CheckpointManager``
+writes its snapshot.  On the graphed route a solve's start is a CUDA graph
+too (``SolveLoop.graphed_start``): the start iterate and, under
 ``params.validate_input``, the input check's verdicts from one replay and
 one host read (``HOST_READS["start"]``), in place of ``validate_fns``'s
 eager evaluations and reads.
@@ -48,6 +52,7 @@ from .callbacks import Callbacks, CallbackType
 from .deriv_check import deriv_check_problem
 from .display import Format, print_problem_stats, solver_display
 from .eval import Counters, EvalError, diagnose_eval_failure, validate_fns
+from .graphs import ChunkGraph, capture, cuda_graphed
 from .iterate import (
     Iterate,
     aug_lag,
@@ -74,12 +79,10 @@ from .transform import Transformation
 from .util import (
     CAPTURES,
     HOST_READS,
+    LAUNCH_SLOTS,
     STARTS,
-    ChunkGraph,
-    _capture,
     add_device_launches,
     begin_call,
-    cuda_graphed,
     device_launches,
     select,
     span,
@@ -160,28 +163,36 @@ def graph_route(params: Params, callbacks=None, problem=None):
 
 def _diagnose(fns, x, y):
     """The problem function that cannot be captured as a CUDA graph at
-    ``(x, y)`` (one that reads the host), or None."""
+    ``(x, y)``, a lane stack's first lane (one that reads the host), or
+    None."""
+    if x.ndim > 1:
+        x, y = x[0], y[0]
     checks = [("objective", lambda x: fns.obj(x)), ("objective gradient", lambda x: fns.obj_grad(x))]
     if fns.num_cons > 0:
         checks += [("constraints", lambda x: fns.cons(x)), ("constraint Jacobian", lambda x: fns.cons_jac(x))]
     checks.append(("Lagrangian Hessian", lambda x: fns.lag_hess(x, y)))
     for name, evaluate in checks:
         try:
-            _capture(evaluate, (x,))
+            capture(evaluate, (x,))
         except RuntimeError:
             return name
     return None
 
 
-class SolveLoop:
-    """The solve loop for one (problem, params) pair on one device."""
+class ChunkLoop:
+    """What the single and the lockstep solve loop share, for one (problem,
+    params) pair on one device: the terminal tests (``check_terminate``),
+    the step core (``step``), the route of a solve call (``decide_route``)
+    and its chunk with the one host read (``run_chunk``, ``read``).  A
+    subclass gives ``body`` (its order of tests and iteration), ``fns``,
+    ``cfg``, ``controller`` and the penalty strategy.  Every helper acts on
+    the last axis, so one code serves 0-dim and (B,) state alike."""
 
     def __init__(self, transform: Transformation, params: Params, device, callbacks=None):
         self.transform = transform
         self.params = params
-        self.fns = transform.fns
-        self.callbacks = callbacks
         self.device = device
+        self.callbacks = callbacks
 
         problem = transform.trans_problem
         self.n = problem.num_vars
@@ -189,20 +200,188 @@ class SolveLoop:
         self.lb = torch.as_tensor(problem.var_lb, dtype=params.dtype, device=device)
         self.ub = torch.as_tensor(problem.var_ub, dtype=params.dtype, device=device)
 
-        self.display = solver_display(self.m, params) if params.display else None
-        self.cfg = make_control_cfg(self.fns, params, self.lb, self.ub)
-        self.controller = make_controller(self.cfg)
-        self.penalty_initial, self.penalty_update = penalty_strategy(params, self.m, self.fns, device)
-
         if params.iteration_limit is not None:
             self.iteration_limit = int(params.iteration_limit)
         else:
             self.iteration_limit = int(params.iteration_limit_default)
-        self.graph = ChunkGraph(self.body, lambda s, fns=self.fns: _diagnose(fns, s.it.x, s.it.y))
-        self._start_graph = None  # graphed_start's replay, captured at its first call
+        # whether a chunk may replay the body as a CUDA graph: on the card;
+        # set false, the loop runs the eager route there (to compare them)
+        self.use_graphs = device.type == "cuda"
+        self.graphed = False  # the route of the current solve call (decide_route)
+        self.graph = ChunkGraph(self.body, lambda s, fns=transform.fns: _diagnose(fns, s.it.x, s.it.y))
 
-    def _scalar(self, value, dtype=None):
-        return torch.tensor(value, dtype=self.params.dtype if dtype is None else dtype, device=self.device)
+    def decide_route(self) -> bool:
+        """Decide the route of a solve call at its start, from ``params``,
+        the callbacks registered by then and the problem: the graph on the
+        card unless the configuration is in ``EAGER_ON_CARD``.  Kept in
+        ``graphed`` for the whole call."""
+        reason = graph_route(self.params, self.callbacks, self.transform.orig_problem)
+        self.graphed = self.use_graphs and reason is None
+        return self.graphed
+
+    def new_state(self, it, lead=(), eval_fail=(), path=()) -> LoopState:
+        """The loop state at the start iterate ``it``, each scalar of shape
+        ``lead``: () for one instance, (B,) for a lane stack."""
+        params = self.params
+
+        def full(value, dtype=params.dtype):
+            return torch.full(lead, value, dtype=dtype, device=self.device)
+
+        rho0, pstate0 = self.penalty_initial(*lead)
+        zero = full(0, torch.int64)
+        counters = Counters.zero(self.device, lead).add(**iterate_eval_counts(self.m))
+        return LoopState(
+            it=it,
+            lamb=full(params.lamb_init),
+            rho=full(rho0),
+            error_sum=full(0.0),
+            pstate=pstate0,
+            iteration=zero,
+            accepted_steps=zero,
+            num_penalty_changes=zero,
+            path_dist=full(0.0),
+            status=full(RUNNING, torch.int64),
+            counters=counters,
+            eval_fail=eval_fail,
+            rcond=full(float("nan")),
+            path=path,
+        )
+
+    def check_terminate(self, state: LoopState):
+        """Termination in the reference's priority (``solver.py:180-205``):
+        a later test overrides an earlier one."""
+        params = self.params
+        it = state.it
+        lb, ub = self.lb, self.ub
+
+        unbounded = (it.obj <= params.obj_lower_limit) & is_feasible(it, lb, ub, params.opt_tol)
+        infeas = locally_infeasible(
+            it, lb, ub, params.active_tol, params.opt_tol, params.local_infeas_tol, self.fns
+        )
+        optimal = total_res(it, lb, ub, params.active_tol, self.fns) <= params.opt_tol
+        status = torch.full_like(state.status, RUNNING)
+        status = torch.where(unbounded, int(SolverStatus.Unbounded), status)
+        status = torch.where(infeas, int(SolverStatus.LocallyInfeasible), status)
+        status = torch.where(optimal, int(SolverStatus.Optimal), status)
+        return torch.where(
+            state.iteration >= self.iteration_limit, int(SolverStatus.IterationLimit), status
+        )
+
+    def step(self, state: LoopState):
+        """The step core of one outer iteration (reference
+        ``solver.py:305-380``): the step, the penalty update with its veto,
+        the counts, the path length, the lambda-limit status and rcond.
+        Returns the new state, whose ``eval_fail`` and ``path`` are
+        ``state``'s, with ``compute_step``'s output and the acceptance."""
+        out = compute_step(
+            self.cfg, self.controller, state.it, state.lamb, state.rho,
+            state.error_sum, state.counters,
+        )
+        ctrl = out.ctrl
+        next_it = ctrl.iterate
+
+        # the penalty update runs on every candidate, applies only to
+        # accepted steps and can veto them (reference solver.py:357-369)
+        pres = self.penalty_update(state.it, next_it, state.rho, state.pstate)
+        accept = ctrl.accepted & pres.accept
+        rho_n = torch.where(accept, pres.rho, state.rho)
+        step_norm = torch.linalg.vector_norm(next_it.x - state.it.x, dim=-1) + torch.linalg.vector_norm(
+            next_it.y - state.it.y, dim=-1
+        )
+        # lambda blow-up (the reference raises, solver.py:323-326)
+        status = torch.where(ctrl.lamb >= self.params.lamb_max, int(SolverStatus.LambdaLimit), RUNNING)
+        rcond = ctrl.rcond if torch.is_tensor(ctrl.rcond) else torch.full_like(state.rcond, ctrl.rcond)
+        state_n = state._replace(
+            it=select(accept, next_it, state.it),
+            lamb=ctrl.lamb,
+            rho=rho_n,
+            error_sum=ctrl.error_sum,
+            pstate=select(ctrl.accepted, pres.state, state.pstate),
+            iteration=state.iteration + 1,
+            accepted_steps=state.accepted_steps + accept,
+            num_penalty_changes=state.num_penalty_changes + (accept & (rho_n != state.rho)),
+            path_dist=state.path_dist + torch.where(accept, step_norm, 0.0),
+            status=status,
+            counters=ctrl.counters,
+            rcond=rcond,
+        )
+        return state_n, out, accept
+
+    def run_iteration(self, state: LoopState) -> LoopState:
+        """One outer iteration: the step core."""
+        return self.step(state)[0]
+
+    def eager_chunk(self, state: LoopState, k: int) -> LoopState:
+        """Up to ``k`` bodies run eagerly while the status runs: on the CPU
+        the status is in host memory, on the card each check is a host read
+        (``HOST_READS["eager"]``)."""
+        for _ in range(k):
+            if state.status.device.type != "cpu":
+                HOST_READS["eager"] += 1
+            if not bool(torch.any(state.status == RUNNING)):
+                break
+            state = self.body(state)
+        return state
+
+    def run_chunk(self, state: LoopState, k: int, payload=None):
+        """Up to ``k`` bodies from ``state`` on the route of the call
+        (``graphed``): the CUDA graph's replays, stopped soon after the
+        status is terminal (``graphs.ChunkGraph.run``), or ``eager_chunk``;
+        no blocking read.  Then, in the same ``pgf.chunk`` span,
+        ``payload(state)``: what the solve keeps and a vector for the host
+        (None: no keep, the status), with the kernel launches that the
+        chunk's bodies counted on the device appended on the graphed route.
+        Returns ``(state, kept, pending)``; ``read(pending)`` reads it."""
+        with span("pgf.chunk", width=state.status.numel(), bodies=k) as attrs:
+            refined = _refined_solves() if attrs is not None else None
+            if self.graphed:
+                state = self.graph.run(state, k)
+                if attrs is not None:  # the bodies replayed
+                    attrs["bodies"] = self.graph.replayed
+            else:
+                state = self.eager_chunk(state, k)
+            kept, vector = (None, state.status) if payload is None else payload(state)
+            if self.graphed:
+                vector = torch.cat([vector, device_launches(state.status.device).to(vector.dtype)])
+        return state, kept, (vector, refined)
+
+    def read(self, pending):
+        """The chunk's one host read (``HOST_READS["chunk"]``) of
+        ``run_chunk``'s vector, as numpy, in the ``pgf.wait`` span: on the
+        graphed route the launch counts at its end go to
+        ``util.add_device_launches``, and while a profiler records, the
+        span's ``kkt_solves`` is the chunk's refined KKT solves."""
+        vector, refined = pending
+        HOST_READS["chunk"] += 1
+        with span("pgf.wait") as attrs:
+            values = vector.cpu().numpy()
+            if self.graphed:
+                n = len(values) - LAUNCH_SLOTS
+                add_device_launches(vector.device, values[n:])
+                values = values[:n]
+            if attrs is not None and refined is not None:
+                attrs["kkt_solves"] = _refined_solves() - refined
+        return values
+
+    def copy_out(self, tree):
+        """``tree`` as tensors that a later solve does not overwrite: on the
+        graphed route, copies of the graph's buffers."""
+        return _clone_tree(tree) if self.graphed else tree
+
+
+class SolveLoop(ChunkLoop):
+    """The solve loop of one instance: ``ChunkLoop`` with the JAX body's
+    order, the start, the ``eval_fail`` record, the path ring, the
+    callbacks and the display rows."""
+
+    def __init__(self, transform: Transformation, params: Params, device, callbacks=None):
+        super().__init__(transform, params, device, callbacks)
+        self.fns = transform.fns
+        self.display = solver_display(self.m, params) if params.display else None
+        self.cfg = make_control_cfg(self.fns, params, self.lb, self.ub)
+        self.controller = make_controller(self.cfg)
+        self.penalty_initial, self.penalty_update = penalty_strategy(params, self.m, self.fns, device)
+        self._start_graph = None  # graphed_start's replay, captured at its first call
 
     def start(self, x, y) -> Start:
         """The start of a solve at ``(x, y)`` as pure tensor code, which
@@ -228,7 +407,7 @@ class SolveLoop:
 
     def graphed_start(self, x, y) -> Start:
         """``start(x, y)`` replayed as a CUDA graph, captured at the first
-        call (``util.cuda_graphed``: a warm-up run, then the capture, counted
+        call (``graphs.cuda_graphed``: a warm-up run, then the capture, counted
         in ``util.CAPTURES``; a capture that fails raises
         ``GraphCaptureError`` naming the problem function that reads the
         host).  Returns the graph's output buffers, which the next call
@@ -245,74 +424,29 @@ class SolveLoop:
         """The loop's state at the start ``(x, y)``, with the iterate ``it``
         when it was evaluated already (``graphed_start``)."""
         params = self.params
-        rho0, pstate0 = self.penalty_initial()
         path = ()
         if params.collect_path:
             cap = params.path_capacity
             buf = torch.zeros((cap, self.n + self.m), dtype=x.dtype, device=x.device)
             buf[0] = torch.cat([x, y])
-            path = (buf, torch.zeros(cap, dtype=x.dtype, device=x.device), self._scalar(1, torch.int64))
+            length = torch.ones((), dtype=torch.int64, device=x.device)
+            path = (buf, torch.zeros(cap, dtype=x.dtype, device=x.device), length)
         eval_fail = ()
         if params.validate_input:
             zx, zy = torch.zeros_like(x), torch.zeros_like(y)
-            eval_fail = (self._scalar(False, torch.bool), zx, zy, zx, zy)
-        zero = self._scalar(0, torch.int64)
-        counters = Counters.zero(self.device).add(**iterate_eval_counts(self.m))
-        return LoopState(
-            it=evaluate_iterate(self.fns, x, y) if it is None else it,
-            lamb=self._scalar(params.lamb_init),
-            rho=self._scalar(rho0),
-            error_sum=self._scalar(0.0),
-            pstate=pstate0,
-            iteration=zero,
-            accepted_steps=zero,
-            num_penalty_changes=zero,
-            path_dist=self._scalar(0.0),
-            status=self._scalar(RUNNING, torch.int64),
-            counters=counters,
-            eval_fail=eval_fail,
-            rcond=self._scalar(float("nan")),
-            path=path,
-        )
-
-    def check_terminate(self, state: LoopState):
-        """Termination in the reference's priority (``solver.py:180-205``):
-        a later test overrides an earlier one."""
-        params = self.params
-        it = state.it
-        lb, ub = self.lb, self.ub
-
-        unbounded = (it.obj <= params.obj_lower_limit) & is_feasible(it, lb, ub, params.opt_tol)
-        infeas = locally_infeasible(
-            it, lb, ub, params.active_tol, params.opt_tol, params.local_infeas_tol, self.fns
-        )
-        optimal = total_res(it, lb, ub, params.active_tol, self.fns) <= params.opt_tol
-        status = torch.full_like(state.status, RUNNING)
-        status = torch.where(unbounded, int(SolverStatus.Unbounded), status)
-        status = torch.where(infeas, int(SolverStatus.LocallyInfeasible), status)
-        status = torch.where(optimal, int(SolverStatus.Optimal), status)
-        return torch.where(
-            state.iteration >= self.iteration_limit, int(SolverStatus.IterationLimit), status
-        )
+            eval_fail = (torch.zeros((), dtype=torch.bool, device=x.device), zx, zy, zx, zy)
+        it = evaluate_iterate(self.fns, x, y) if it is None else it
+        return self.new_state(it, eval_fail=eval_fail, path=path)
 
     def run_iteration(self, state: LoopState) -> LoopState:
-        """One outer iteration (reference ``solver.py:305-380``)."""
+        """One outer iteration: the step core (``ChunkLoop.step``), then the
+        first non-finite candidate into ``eval_fail``, the accepted iterate
+        into the path ring, the ``ComputedStep`` callback and the display
+        row."""
         params = self.params
-        out = compute_step(
-            self.cfg, self.controller, state.it, state.lamb, state.rho,
-            state.error_sum, state.counters,
-        )
+        state_n, out, accept = self.step(state)
         ctrl = out.ctrl
         next_it = ctrl.iterate
-
-        # the penalty update runs on every candidate, applies only to
-        # accepted steps and can veto them (reference solver.py:357-369)
-        pres = self.penalty_update(state.it, next_it, state.rho, state.pstate)
-        accept = ctrl.accepted & pres.accept
-        rho_n = torch.where(accept, pres.rho, state.rho)
-        step_norm = torch.linalg.vector_norm(next_it.x - state.it.x) + torch.linalg.vector_norm(
-            next_it.y - state.it.y
-        )
 
         eval_fail = state.eval_fail
         if eval_fail:
@@ -348,25 +482,7 @@ class SolveLoop:
             path = (buf.index_copy(0, idx, row[None]), times.index_copy(0, idx, time_n.reshape(1)),
                     length + write)
 
-        # lambda blow-up (the reference raises, solver.py:323-326)
-        status = torch.where(ctrl.lamb >= params.lamb_max, int(SolverStatus.LambdaLimit), RUNNING)
-        rcond = ctrl.rcond if torch.is_tensor(ctrl.rcond) else torch.full_like(state.rcond, ctrl.rcond)
-        state_n = LoopState(
-            it=select(accept, next_it, state.it),
-            lamb=ctrl.lamb,
-            rho=rho_n,
-            error_sum=ctrl.error_sum,
-            pstate=select(ctrl.accepted, pres.state, state.pstate),
-            iteration=state.iteration + 1,
-            accepted_steps=state.accepted_steps + accept,
-            num_penalty_changes=state.num_penalty_changes + (accept & (rho_n != state.rho)),
-            path_dist=state.path_dist + torch.where(accept, step_norm, 0.0),
-            status=status,
-            counters=ctrl.counters,
-            eval_fail=eval_fail,
-            rcond=rcond,
-            path=path,
-        )
+        state_n = state_n._replace(eval_fail=eval_fail, path=path)
         if self.display is not None and self.display.should_display():
             self._emit_row(state, state_n, ctrl, accept)
         return state_n
@@ -431,25 +547,6 @@ class SolveLoop:
             state = self.run_iteration(state)
         return state
 
-    def graphed_chunk(self, state: LoopState, k: int) -> LoopState:
-        """Up to ``k`` bodies replayed as the captured CUDA graph, stopped
-        soon after the status is terminal (``util.ChunkGraph.run``), a
-        terminal state unchanged by them; no blocking read of the state."""
-        return self.graph.run(state, k)
-
-    def chunk_route(self):
-        """The chunk runner of this solve, decided from ``params`` and the
-        callbacks and the problem before it starts: the graph on the card
-        unless the configuration is in ``EAGER_ON_CARD``."""
-        route = graph_route(self.params, self.callbacks, self.transform.orig_problem)
-        if self.device.type == "cuda" and route is None:
-            return self.graphed_chunk
-        return self.eager_chunk
-
-    def graphed(self) -> bool:
-        """Whether this solve takes the graphed route (``chunk_route``)."""
-        return self.chunk_route() == self.graphed_chunk
-
     def _finalize(self, state: LoopState, x0, y0):
         """What the solve returns, fused into the chunk's one read
         (``pygradflow_tpu/solver.py:361-411``): the solution triple as
@@ -481,50 +578,20 @@ class SolveLoop:
         scalars = torch.stack([v.to(torch.float64) for v in values])
         return self.transform.restore_sol(it.x, it.y, d), scalars
 
-    def run_fused(self, x, y, timer: Timer, state=None, ckpt=None):
-        """Drive a solve from ``(x, y)``, or from ``state`` (a resumed
-        snapshot), in chunks of ``params.jit_chunk`` bodies through
-        ``chunk_route()``, with one host read per chunk: the packed scalars
-        of ``_finalize``, the status last.  At each chunk boundary ``ckpt``
-        may write a snapshot and the time limit is checked.  Returns
-        ``(state, sol, scalars)``: the final state (tensors that a later
-        solve does not overwrite), the solution triple, and the scalars as
-        a list of floats."""
-        state, sol, scalars = self.run_chunks(x, y, timer, state, ckpt)
-        return self.copy_out(state), self.copy_out(sol), scalars
-
-    def copy_out(self, tree):
-        """``tree`` as tensors that a later solve does not overwrite: on the
-        graphed route, copies of the graph's buffers."""
-        return _clone_tree(tree) if self.chunk_route() == self.graphed_chunk else tree
-
     def run_chunks(self, x, y, timer: Timer, state=None, ckpt=None):
-        """``run_fused`` without its last step: the state and solution
-        returned may be the graph's buffers (``copy_out``)."""
-        run_chunk = self.chunk_route()
+        """Drive a solve from ``(x, y)``, or from ``state`` (a resumed
+        snapshot), in chunks of ``params.jit_chunk`` bodies (``run_chunk``)
+        with one host read per chunk: the packed scalars of ``_finalize``,
+        the status last.  At each chunk boundary ``ckpt`` may write a
+        snapshot and the time limit is checked.  Returns ``(state, sol,
+        scalars)``: the final state and the solution triple, the graph's
+        buffers on the graphed route (``copy_out``), and the scalars as a
+        list of floats."""
         if state is None:
             state = self.init_state(x, y)
-        k = self.params.jit_chunk
-        graphed = run_chunk == self.graphed_chunk
         while True:
-            with span("pgf.chunk", width=1, bodies=k) as attrs:
-                refined = _refined_solves() if attrs is not None else None
-                state = run_chunk(state, k)
-                if graphed and attrs is not None:  # the bodies replayed
-                    attrs["bodies"] = self.graph.replayed
-                sol, scalars = self._finalize(state, x, y)
-                if graphed:  # with the kernel launches that the chunk's bodies counted
-                    launches = device_launches(state.status.device)
-                    scalars = torch.cat([scalars, launches.to(torch.float64)])
-            HOST_READS["chunk"] += 1
-            with span("pgf.wait") as attrs:
-                scalars = scalars.tolist()
-                if graphed:
-                    n_scalars = len(scalars) - launches.numel()
-                    add_device_launches(state.status.device, scalars[n_scalars:])
-                    del scalars[n_scalars:]
-                if attrs is not None and refined is not None:  # the chunk's refined KKT solves, now on the host
-                    attrs["kkt_solves"] = _refined_solves() - refined
+            state, sol, pending = self.run_chunk(state, self.params.jit_chunk, lambda s: self._finalize(s, x, y))
+            scalars = self.read(pending).tolist()
             if int(scalars[-1]) != RUNNING:
                 break
             if ckpt is not None:
@@ -534,13 +601,6 @@ class SolveLoop:
                 state = state._replace(status=torch.full_like(state.status, int(SolverStatus.TimeLimit)))
                 break
         return state, sol, scalars
-
-
-    def run(self, state: LoopState, timer: Timer, ckpt=None) -> LoopState:
-        """Drive chunks from ``state`` until a terminal status or the time
-        limit, with ``ckpt`` writing its snapshot at chunk boundaries (the
-        JAX package's ``SolveLoop.run``); returns the final state."""
-        return self.run_fused(state.it.x, state.it.y, timer, state=state, ckpt=ckpt)[0]
 
 
 def _refined_solves() -> int:
@@ -576,7 +636,7 @@ def _profiled(fn, trace_dir: str, device: torch.device):
     return out
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     """The device of a solve: ``None`` means the current CUDA device, and
     raises when there is none; the CPU only when asked for."""
     if device is None:
@@ -607,7 +667,7 @@ class Solver:
             params = Params()
         self.orig_problem = problem
         self.params = params
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.callbacks = Callbacks()
 
         self.transform = Transformation(problem, params, self.device)
@@ -650,6 +710,7 @@ class Solver:
         begin_call()
 
         with span("pgf.prepare"):
+            loop.decide_route()
             x, y = self.transform.create_transformed_initial(x0, y0, self.device)
 
             it = self._start(x, y)
@@ -671,7 +732,8 @@ class Solver:
 
         state, sol, scalars = loop.run_chunks(x, y, timer, state=state0, ckpt=ckpt)
         with span("pgf.finish"):
-            return self._result(loop.copy_out(state), loop.copy_out(sol), scalars, timer)
+            state, sol = loop.copy_out((state, sol))
+            return self._result(state, sol, scalars, timer)
 
     def _start(self, x, y):
         """The input check under ``params.validate_input``, and the start
@@ -683,9 +745,8 @@ class Solver:
         to raise the error it names, and a false symmetry verdict logs its
         warning.  Elsewhere ``validate_fns`` runs eagerly."""
         loop, validate = self._loop, self.params.validate_input
-        graphed = loop.graphed()
-        with span("pgf.check_input", graphed=graphed) if validate else contextlib.nullcontext():
-            if not graphed:
+        with span("pgf.check_input", graphed=loop.graphed) if validate else contextlib.nullcontext():
+            if not loop.graphed:
                 STARTS["eager"] += 1
                 if validate:
                     self._validate(x, y)

@@ -1,4 +1,4 @@
-"""The port's solve loop on the device (``SolveLoop.body``/``run_fused``,
+"""The port's solve loop on the device (``SolveLoop.body``/``run_chunks``,
 ``LaneLoop.body``/``read``) on the CPU: the same tensor body that the card
 replays as a CUDA graph, run eagerly, with one host read per chunk of
 ``params.jit_chunk`` iterations.
@@ -24,11 +24,12 @@ import pygradflow_torch
 import pygradflow_tpu
 import tests.problems as jprob
 from pygradflow_torch.callbacks import CallbackType
+from pygradflow_torch.graphs import LOOKAHEAD, replay_until_done
 from pygradflow_torch.parallel import BatchedSolver
 from pygradflow_torch.runners.control import PendulumControl as TPendulum
 from pygradflow_torch.solver import graph_route
-from pygradflow_torch.status import RUNNING
-from pygradflow_torch.util import HOST_READS, LOOKAHEAD, replay_until_done
+from pygradflow_torch.status import RUNNING, SolverStatus
+from pygradflow_torch.util import HOST_READS, tree_map
 from pygradflow_tpu.parallel import BatchedSolver as JBatchedSolver
 from pygradflow_tpu.runners.control import PendulumControl as JPendulum
 
@@ -148,7 +149,7 @@ def test_body_reads_nothing_and_keeps_a_terminal_state(name):
     assert not mode.reads
     assert int(after.iteration) == 1
 
-    done = loop.run_fused(x, y, pygradflow_torch.timer.Timer(np.inf))[0]
+    done = loop.run_chunks(x, y, pygradflow_torch.timer.Timer(np.inf))[0]
     assert int(done.status) != RUNNING
     again = loop.body(loop.body(done))
     for a, b in zip(torch.utils._pytree.tree_leaves(done), torch.utils._pytree.tree_leaves(again)):
@@ -160,6 +161,29 @@ def test_body_reads_nothing_and_keeps_a_terminal_state(name):
     with _HostReads() as mode:
         lanes.body(lane_state)
     assert not mode.reads
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_check_terminate_on_lanes_equals_each_lane(name):
+    """One ``check_terminate`` (``solver.ChunkLoop``'s) gives a lane stack
+    the statuses it gives each lane's 0-dim state: the lockstep states from
+    the start to the optimum, and one lane at the iteration limit."""
+    solver, result = _solve(name)
+    _, _, x0, y0, _, _ = _case(name)
+    x, y = solver.transform.create_transformed_initial(tensor(x0), None if y0 is None else tensor(y0), solver.device)
+    lanes = BatchedSolver(solver.orig_problem, solver.params, device="cpu").loop
+    state = lanes.init_state(x[None], y[None])
+    states = [state]
+    for _ in range(result.iterations):
+        state = lanes.body(state)
+        states.append(state)
+    stack = tree_map(lambda *a: torch.cat(a), *states)
+    width = stack.status.shape[0]
+    stack = stack._replace(iteration=torch.where(torch.arange(width) == 1, lanes.iteration_limit, stack.iteration))
+    statuses = lanes.check_terminate(stack).tolist()
+    single = [int(solver._loop.check_terminate(tree_map(lambda a: a[k], stack))) for k in range(width)]
+    assert statuses == single
+    assert {RUNNING, int(SolverStatus.Optimal), int(SolverStatus.IterationLimit)} <= set(single)
 
 
 @pytest.mark.parametrize("precision", ["Double", "Single"])
@@ -241,10 +265,16 @@ def test_route_is_decided_from_params():
     ]
     assert all(graph_route(p) for p in eager)
     solver = pygradflow_torch.Solver(tprob.Rosenbrock(), P(), device="cpu")
+    loop = solver._loop
+    loop.use_graphs = True  # the card's decision, without a card
+    assert loop.decide_route()
+    # a callback registered after construction sends the next solve down
+    # the eager route, decided at the solve's start
     solver.callbacks.register(CallbackType.ComputedStep, lambda *a: None)
     assert "ComputedStep" in graph_route(solver.params, solver.callbacks)
+    assert solver.solve(np.array([0.0, 0.0])).status.name == "Optimal" and not loop.graphed
     # on the CPU both routes run the eager chunk
-    assert solver._loop.chunk_route() == solver._loop.eager_chunk
+    assert not pygradflow_torch.Solver(tprob.Rosenbrock(), P(), device="cpu")._loop.decide_route()
 
 
 def test_host_evaluating_problems_route_eagerly(fake_pycutest):  # noqa: F811

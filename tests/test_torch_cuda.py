@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from pygradflow_torch import LinearSolverType, Params, Solver, util
+from pygradflow_torch import LinearSolverType, Params, Solver, graphs, util
 from pygradflow_torch.linalg import ldlt_kernels as lk
 from pygradflow_torch.linalg.ldlt import ldlt_num_neg_eigvals
 from pygradflow_torch.runners.control import PendulumControl
@@ -26,9 +26,9 @@ def replays(first_terminal, jit_chunk):
     """The bodies a graphed solve replays when its ``first_terminal``-th
     body (from 1) is the first to leave a terminal state: every body of the
     chunks before that body's chunk, and in its chunk up to
-    ``util.LOOKAHEAD - 1`` bodies past it (``util.replay_until_done``)."""
+    ``graphs.LOOKAHEAD - 1`` bodies past it (``graphs.replay_until_done``)."""
     full = (first_terminal - 1) // jit_chunk
-    return full * jit_chunk + min(jit_chunk, first_terminal - full * jit_chunk + util.LOOKAHEAD - 1)
+    return full * jit_chunk + min(jit_chunk, first_terminal - full * jit_chunk + graphs.LOOKAHEAD - 1)
 
 
 def graphed_launches(iterations, jit_chunk=Params().jit_chunk):
@@ -455,7 +455,7 @@ def test_checkpoint_resume_on_cuda_is_bitwise(cuda, tmp_path):
 def _eager(solver):
     """``solver`` with every chunk through its loop's eager route."""
     loop = solver._loop if hasattr(solver, "_loop") else solver.loop
-    loop.chunk_route = lambda: loop.eager_chunk
+    loop.use_graphs = False
     return solver
 
 
@@ -510,10 +510,10 @@ def test_graphed_loop_equals_eager_loop(cuda, case, batched):
 @pytest.mark.parametrize("case", ["rosenbrock", "hs71"])
 @pytest.mark.parametrize("batched", [False, True], ids=["single", "lanes"])
 def test_replays_stop_after_the_terminal_body(cuda, case, batched, jit_chunk, monkeypatch):
-    """A graphed chunk stops its replays ``util.LOOKAHEAD - 1`` bodies after
-    the first terminal one (``util.REPLAYS`` counts them by that rule) and
-    gives, bit for bit, the eager loop's answer and that of the same solve
-    with every chunk replayed whole."""
+    """A graphed chunk stops its replays ``graphs.LOOKAHEAD - 1`` bodies after
+    the first terminal one (``ChunkGraph.replayed``, summed over the chunks,
+    counts them by that rule) and gives, bit for bit, the eager loop's
+    answer and that of the same solve with every chunk replayed whole."""
     from pygradflow_torch.parallel import BatchedSolver
 
     from .torch_parity import HS71, Rosenbrock
@@ -527,9 +527,17 @@ def test_replays_stop_after_the_terminal_body(cuda, case, batched, jit_chunk, mo
     params = Params(jit_chunk=jit_chunk)
 
     def solve(solver):
-        before = dict(util.REPLAYS)
-        res = solver.solve(x0, y0)
-        return res, {key: util.REPLAYS[key] - before.get(key, 0) for key in ("bodies", "stopped")}
+        graph = (solver.loop if batched else solver._loop).graph
+        run, counted = graph.run, {"bodies": 0, "stopped": 0}
+
+        def counting(state, k):  # each chunk's replays
+            out = run(state, k)
+            counted["bodies"] += graph.replayed
+            counted["stopped"] += int(graph.replayed < k)
+            return out
+
+        graph.run = counting
+        return solver.solve(x0, y0), counted
 
     def make():
         return (BatchedSolver if batched else Solver)(problem, params, device=cuda)
@@ -541,7 +549,7 @@ def test_replays_stop_after_the_terminal_body(cuda, case, batched, jit_chunk, mo
     first_terminal = iters if batched else iters + 1
     assert counted["bodies"] == replays(first_terminal, jit_chunk)
     in_last_chunk = first_terminal - (first_terminal - 1) // jit_chunk * jit_chunk
-    assert counted["stopped"] == int(in_last_chunk + util.LOOKAHEAD - 1 < jit_chunk)
+    assert counted["stopped"] == int(in_last_chunk + graphs.LOOKAHEAD - 1 < jit_chunk)
 
     def every_body(replay, done, k, lookahead):
         for i in range(k):
@@ -550,7 +558,7 @@ def test_replays_stop_after_the_terminal_body(cuda, case, batched, jit_chunk, mo
 
     ref = _eager(make()).solve(x0, y0)
     with monkeypatch.context() as m:
-        m.setattr(util, "replay_until_done", every_body)
+        m.setattr(graphs, "replay_until_done", every_body)
         whole, whole_counted = solve(make())
     assert whole_counted == {"bodies": -(-first_terminal // jit_chunk) * jit_chunk, "stopped": 0}
     fields = ("x", "y", "d", "status", "iterations", "accepted_steps") if batched else ("x", "y", "d")
@@ -586,7 +594,7 @@ def test_host_reading_problem_raises_on_the_card(cuda):
     solved as a graph before and after the failed capture gives the same
     bits."""
     from pygradflow_torch import Problem
-    from pygradflow_torch.util import GraphCaptureError
+    from pygradflow_torch.graphs import GraphCaptureError
 
     from .torch_parity import HS71
 
@@ -603,7 +611,7 @@ def test_host_reading_problem_raises_on_the_card(cuda):
         Solver(Branching(), Params(validate_input=False), device=cuda).solve(np.array([1.0, 1.0]))
     solver = Solver(HS71(), Params(), device=cuda)
     after = solver.solve(x0, y0)
-    assert solver._loop.chunk_route() == solver._loop.graphed_chunk and solver._loop.graph.captures == 1
+    assert solver._loop.graphed and solver._loop.graph.captures == 1
     assert (after.status, after.iterations, after.num_accepted_steps) == (before.status, before.iterations,
                                                                          before.num_accepted_steps)
     for field in ("x", "y", "d"):
@@ -616,7 +624,7 @@ def test_host_reading_problem_raises_at_the_start_graph(cuda):
     the error that the loop's graph gives, naming the objective, and no
     loop graph is captured."""
     from pygradflow_torch import Problem
-    from pygradflow_torch.util import GraphCaptureError
+    from pygradflow_torch.graphs import GraphCaptureError
 
     class Branching(Problem):
         def __init__(self):

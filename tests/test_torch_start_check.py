@@ -78,16 +78,20 @@ def _start_point(solver, x0, y0=None):
 
 
 def _graphed_on_cpu(solver, monkeypatch):
-    """``solver`` with ``Solver._start``'s graphed branch, the start run
-    eagerly where the card replays its graph (the chunks stay eager)."""
+    """``solver`` on the graphed route: ``Solver._start``'s graphed branch,
+    the start run eagerly where the card replays its graph, and each
+    chunk's bodies run eagerly where the card replays them (the chunk's
+    read is the graphed route's)."""
     loop = solver._loop
 
     def start(x, y):
         util.STARTS["graphed"] += 1
         return loop.start(x, y)
 
-    monkeypatch.setattr(loop, "graphed", lambda: True)
+    monkeypatch.setattr(loop, "use_graphs", True)
+    monkeypatch.setattr(loop, "graphed", True)  # for a bare _start; a solve decides it again
     monkeypatch.setattr(loop, "graphed_start", start)
+    monkeypatch.setattr(loop.graph, "run", loop.eager_chunk)
     return solver
 
 

@@ -55,6 +55,10 @@ ALLOWED = {
 RENAMED = {
     # deliberate: the port's LoopState keeps the rcond estimate as ``rcond``
     "pygradflow_tpu.solver:LoopState.last_rcond": "rcond",
+    # the port's one driver of a single solve's chunks, from a start or a
+    # resumed state, with the finalizer fused into each chunk's read
+    "pygradflow_tpu.solver:SolveLoop.run": "run_chunks",
+    "pygradflow_tpu.solver:SolveLoop.run_fused": "run_chunks",
 }
 
 
